@@ -1,0 +1,75 @@
+"""Shared backend value types.
+
+Reference: pkg/backend/common/common.go:18-29 (WatchEvent) and the proto Event
+verbs used at pkg/backend/backend.go:240-262.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+
+class Verb(enum.IntEnum):
+    CREATE = 0
+    PUT = 1
+    DELETE = 2
+
+
+@dataclass(slots=True)
+class WatchEvent:
+    """The record handed from the write path to the async event pipeline.
+
+    One WatchEvent is posted for *every* allocated revision — valid or not —
+    so the single sequencer can consume revisions contiguously
+    (reference common.go:18-29; sequencing invariant at backend.go:208-270).
+    Slotted: the history cache holds up to 200k of these.
+    """
+
+    revision: int
+    verb: Verb = Verb.PUT
+    key: bytes = b""
+    value: bytes = b""
+    prev_revision: int = 0
+    prev_value: bytes | None = None
+    valid: bool = True
+    err: BaseException | None = None
+    # monotonic commit time, stamped by the sequencer when this revision is
+    # committed — the zero point of the watch-path delivery-lag histograms
+    ts: float = 0.0
+
+
+@dataclass
+class KeyValue:
+    key: bytes
+    value: bytes
+    revision: int
+
+
+@dataclass
+class RangeResult:
+    kvs: list[KeyValue] = field(default_factory=list)
+    revision: int = 0
+    more: bool = False
+    count: int = 0
+
+
+# Engine-level tombstone marker written at the object key on delete
+# (reference pkg/backend/util.go:28-42).
+TOMBSTONE = b"\x00kb_tombstone\x00"
+
+# Metadata keys live outside the MAGIC-prefixed MVCC keyspace so scans never
+# observe them (reference stores compact_key/election under the user prefix,
+# compact.go:70-105 / election/election.go:49; a disjoint namespace is cleaner).
+META_PREFIX = b"!kb_meta/"
+COMPACT_KEY = META_PREFIX + b"compact"
+ELECTION_KEY = META_PREFIX + b"election"
+# The lease registry's checkpoint row (kubebrain_tpu/lease): ids, granted
+# TTLs, remaining-TTL-at-checkpoint, and key attachments, length-framed.
+LEASE_STATE_KEY = META_PREFIX + b"lease_state"
+# Highest successfully-committed revision, updated inside every write batch.
+# A new leader seeds its sequencer from this + the election record clock so
+# revision numbers are never re-dealt across terms (the reference gets this
+# from TiKV's PD timestamp domain dominating revision counts; an embedded
+# commit-counter clock needs the explicit watermark).
+LAST_REV_KEY = META_PREFIX + b"last_rev"

@@ -1,0 +1,58 @@
+"""Backend-level error taxonomy (maps onto etcd3 error codes at the shim)."""
+
+from __future__ import annotations
+
+
+class BackendError(Exception):
+    pass
+
+
+class CompactedError(BackendError):
+    """Requested revision is older than the compact watermark.
+
+    Reference: scanner.go:594-626 (checkCompactRace) — readers at a revision
+    below the persisted compact record must fail; etcd calls this
+    ErrCompacted and clients respond by re-listing.
+    """
+
+    def __init__(self, requested: int, compacted: int):
+        super().__init__(f"revision {requested} compacted at {compacted}")
+        self.requested = requested
+        self.compacted = compacted
+
+
+class FutureRevisionError(BackendError):
+    """Requested revision is ahead of the committed revision."""
+
+    def __init__(self, requested: int, current: int):
+        super().__init__(f"revision {requested} > current {current}")
+        self.requested = requested
+        self.current = current
+
+
+class KeyExistsError(BackendError):
+    """Create of a live key; carries the existing revision."""
+
+    def __init__(self, key: bytes, revision: int):
+        super().__init__(f"key exists: {key!r}@{revision}")
+        self.key = key
+        self.revision = revision
+
+
+class CASRevisionMismatchError(BackendError):
+    """Conditional update/delete lost; carries latest (revision, value)."""
+
+    def __init__(self, key: bytes, revision: int, value: bytes | None):
+        super().__init__(f"revision mismatch on {key!r}: latest {revision}")
+        self.key = key
+        self.revision = revision
+        self.value = value
+
+
+class NotLeaderError(BackendError):
+    pass
+
+
+class WatchExpiredError(BackendError):
+    """Watch start revision fell out of the history cache; client must re-list
+    (reference backend/watch.go:60-84)."""

@@ -1,0 +1,386 @@
+"""Watch-event fan-out hub.
+
+Reference: pkg/backend/watcherhub.go:30-100 — a map of subscriber channels
+(buffer 10000); every event batch is pushed to every subscriber with a
+non-blocking send, and **slow consumers are dropped** (watcherhub.go:82-90):
+a watcher that cannot keep up is removed and its stream ends, forcing the
+client to re-watch (and possibly re-list). This bounds memory and protects
+the pipeline — the same protocol etcd uses for its watch streams.
+
+Filters are key *ranges* [start, end) + a minimum revision (etcd watch
+semantics; a prefix watch is [p, prefix_end(p)), a single-key watch is
+[k, k+\\0)). Matching runs on the host: an interval-stabbing index over the
+watcher ranges for large populations, a linear filter otherwise.
+"""
+
+from __future__ import annotations
+
+import bisect
+import queue
+import threading
+import time
+from typing import Callable
+
+from .common import WatchEvent
+
+SUBSCRIBER_BUFFER = 10000
+
+
+class ProgressMarker:
+    """A watch progress mark riding a subscriber queue IN ORDER with event
+    batches: by the time a consumer pulls it, every event with revision <=
+    ``revision`` has already been pulled (the poster guarantees all such
+    events were enqueued first — Backend.flushed_revision). The follower
+    replication stream uses these to advance its applied watermark across
+    the leader's revision gaps (docs/replication.md)."""
+
+    __slots__ = ("revision",)
+
+    def __init__(self, revision: int):
+        self.revision = revision
+
+
+def _in_range(key: bytes, start: bytes, end: bytes) -> bool:
+    return key >= start and (not end or key < end)
+
+
+class _RangeIndex:
+    """Sweep-line interval-stabbing index over watcher ranges.
+
+    Kube watch populations are thousands of near-disjoint namespace prefixes
+    (plus a few broad watches), so matching an event by scanning all W
+    watchers — or dispatching a kernel per small batch — wastes almost all
+    of its work. Coordinate-compress the range boundaries into elementary
+    segments and precompute each segment's covering watcher list: a lookup
+    is then bisect + list walk, O(log S + matches).
+
+    Degenerate (heavily nested) populations could make the per-segment lists
+    big; ``dense`` flags when average coverage explodes so the caller can
+    fall back to linear filtering.
+    """
+
+    __slots__ = ("_bounds", "_cover", "dense")
+
+    # average covering-watchers-per-segment beyond which the index is worse
+    # than linear filtering; construction aborts early at this point so a
+    # degenerate population (e.g. thousands of unbounded from-key watches)
+    # never pays the O(W^2) segment-list materialization
+    DENSE_COVER = 64
+
+    def __init__(self, filters: dict[int, tuple[bytes, bytes, int]]):
+        events = []  # (key, is_end, wid)
+        for wid, (start, end, _minrev) in filters.items():
+            events.append((start, 0, wid))
+            # end == b"" means unbounded: never removed
+            if end:
+                events.append((end, 1, wid))
+        events.sort(key=lambda t: (t[0], t[1]))
+        bounds: list[bytes] = [b""]
+        cover: list[tuple[int, ...]] = [()]
+        active: set[int] = set()
+        total_cover = 0
+        self.dense = False
+        i = 0
+        n = len(events)
+        while i < n:
+            key = events[i][0]
+            while i < n and events[i][0] == key:
+                _, is_end, wid = events[i]
+                (active.discard if is_end else active.add)(wid)
+                i += 1
+            if key == bounds[-1]:
+                cover[-1] = tuple(active)
+            else:
+                bounds.append(key)
+                cover.append(tuple(active))
+            total_cover += len(active)
+            if len(cover) >= 64 and total_cover > self.DENSE_COVER * len(cover):
+                # too nested to index: abandon construction (lookup must not
+                # be used — the hub falls back to linear filtering)
+                self.dense = True
+                break
+        self._bounds = bounds
+        self._cover = cover
+
+    def lookup(self, key: bytes) -> tuple[int, ...]:
+        """Watcher ids whose [start, end) contains ``key`` (min_revision NOT
+        applied — the caller filters)."""
+        idx = bisect.bisect_right(self._bounds, key) - 1
+        return self._cover[idx]
+
+
+class WatcherHub:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._subs: dict[int, queue.Queue] = {}
+        # id -> (start, end, min_revision); end == b"" means unbounded
+        self._filters: dict[int, tuple[bytes, bytes, int]] = {}
+        # watcher-set version: invalidates the interval index in O(1)
+        self._version = 0
+        # lazily (re)built interval index for host-side matching
+        self._index: _RangeIndex | None = None
+        self._index_version = -1
+        # optional metrics sink (set_metrics): commit->delivery lag histogram
+        # + per-watcher backlog gauges
+        self._metrics = None
+
+    def set_metrics(self, metrics) -> None:
+        """Arm watch-path lag instrumentation: ``kb.watch.lag.seconds``
+        (commit -> subscriber-queue delivery, emitted in ``stream``) and a
+        ``kb.watch.backlog{watcher=}`` scrape-time gauge per live watcher.
+        Dead watchers unregister themselves by raising LookupError at scrape
+        (the callback-gauge collector drops them)."""
+        self._metrics = metrics
+
+    def _backlog_of(self, wid: int) -> float:
+        q = self._subs.get(wid)
+        if q is None:
+            raise LookupError(wid)  # watcher gone: gauge self-unregisters
+        qsize = getattr(q, "qsize", None)
+        return float(qsize()) if callable(qsize) else 0.0
+
+    def add_watcher(
+        self, start: bytes = b"", end: bytes = b"", min_revision: int = 0,
+        queue_factory=None,
+    ) -> tuple[int, queue.Queue]:
+        with self._lock:
+            return self._add_locked(start, end, min_revision, queue_factory)
+
+    def _add_locked(
+        self, start: bytes, end: bytes, min_revision: int, queue_factory=None
+    ) -> tuple[int, queue.Queue]:
+        """``queue_factory(maxsize)`` may supply a custom subscriber queue
+        (e.g. an asyncio bridge); it must provide queue.Queue's put_nowait /
+        get_nowait / empty contract incl. raising queue.Full."""
+        self._next_id += 1
+        self._version += 1
+        wid = self._next_id
+        factory = queue_factory or (lambda maxsize: queue.Queue(maxsize=maxsize))
+        q = factory(SUBSCRIBER_BUFFER)
+        self._subs[wid] = q
+        self._filters[wid] = (start, end, min_revision)
+        if self._metrics is not None:
+            self._metrics.register_gauge_fn(
+                "kb.watch.backlog", lambda w=wid: self._backlog_of(w),
+                watcher=str(wid),
+            )
+        return wid, q
+
+    def add_watcher_with_replay(
+        self,
+        start: bytes,
+        end: bytes,
+        revision: int,
+        cache,
+        validate: Callable[[], None] | None = None,
+        queue_factory=None,
+    ) -> tuple[int, queue.Queue, int]:
+        """Atomically subscribe AND replay history >= ``revision`` from the
+        watch cache, then set the live filter to newest-replayed + 1.
+
+        Registration and replay must be one critical section w.r.t.
+        ``stream``: the sequencer adds events to the cache *before* streaming,
+        so under the hub lock every event is either (a) already in the cache —
+        delivered exactly once via replay and excluded from the live stream by
+        the advanced filter — or (b) not yet streamed — delivered exactly once
+        live. (The reference gets the same exactly-once property from
+        subscribe-first + a lastRevision filter in the consumer goroutine,
+        watch.go:102-160.)
+
+        Returns (wid, queue, replayed_count).
+        """
+        with self._lock:
+            if validate is not None:
+                validate()  # fast-fail before paying for the replay
+            catch_up = (
+                [e for e in cache.find_events(revision) if _in_range(e.key, start, end)]
+                if revision
+                else []
+            )
+            if validate is not None and revision:
+                # re-check AFTER the replay copy: the sequencer appends (and
+                # evicts) cache entries outside the hub lock, so the cache's
+                # oldest revision may have advanced past ``revision`` between
+                # the first check and find_events — replay would then be
+                # missing the evicted events. Eviction only moves oldest
+                # forward, so if this second check passes, find_events ran
+                # with oldest <= revision and the copy is complete.
+                validate()
+            next_rev = (catch_up[-1].revision + 1) if catch_up else revision
+            wid, q = self._add_locked(start, end, next_rev, queue_factory)
+            if catch_up:
+                q.put_nowait(catch_up)
+            return wid, q, len(catch_up)
+
+    def delete_watcher(self, wid: int) -> None:
+        with self._lock:
+            q = self._subs.pop(wid, None)
+            self._filters.pop(wid, None)
+            self._version += 1
+        if q is not None and self._metrics is not None:
+            # eager unregistration (outside the hub lock): scrape-time
+            # LookupError GC alone would leak one dead entry per watcher
+            # on servers nothing ever scrapes
+            self._metrics.unregister_gauge_fn("kb.watch.backlog",
+                                              watcher=str(wid))
+        if q is not None:
+            # Drop protocol. Evicting buffered batches to fit the poison
+            # pill would let the consumer deliver a NEWER batch after an
+            # older one was discarded (the consumer races any eviction) —
+            # an invisible gap whose resume watermark skips the evicted
+            # events forever (docs/replication.md). Instead: flag the
+            # queue dropped FIRST — consumers check the flag before every
+            # delivery and truncate, so the delivered sequence stays a
+            # strict prefix of the enqueued order — then make room for
+            # the pill (the evictions are now provably undeliverable).
+            # Structurally bounded: each pass evicts one batch from a
+            # bounded queue until the pill fits.
+            try:
+                q.kb_dropped = True
+            except AttributeError:
+                pass  # exotic queue_factory without attribute support
+            while True:  # kblint: disable=KB118 -- drains a bounded queue
+                try:
+                    q.put_nowait(None)
+                    break
+                except queue.Full:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        pass
+
+    def post_progress(self, wid: int, revision: int) -> None:
+        """Enqueue a ProgressMarker on watcher ``wid``'s own queue. The
+        caller must have established that every event with revision <=
+        ``revision`` was already enqueued (Backend.flushed_revision reads
+        the sequencer floor while the drainer is idle); queue FIFO then
+        carries the ordering to the wire. Best-effort: a full queue drops
+        the mark (that watcher is about to be dropped as a slow consumer
+        anyway), never an event."""
+        with self._lock:
+            q = self._subs.get(wid)
+        if q is None:
+            return
+        try:
+            q.put_nowait(ProgressMarker(revision))
+        except queue.Full:
+            pass
+
+    def watcher_count(self) -> int:
+        with self._lock:
+            return len(self._subs)
+
+    def watcher_ids(self) -> list[int]:
+        """Live watcher ids (the fault plane's watch-reset injection picks
+        its victims from this list)."""
+        with self._lock:
+            return list(self._subs)
+
+    def stream(self, batch: list[WatchEvent]) -> None:
+        """Push one batch to every matching subscriber; drop the slow.
+
+        Reference watcherhub.go:78-100. Per-watcher filtering (range +
+        min-revision) happens here rather than in each consumer thread, so
+        one pass over the batch serves every watcher.
+        """
+        if not batch:
+            return
+        with self._lock:
+            subs = list(self._subs.items())
+            filters = dict(self._filters)
+            version = self._version
+        if not subs:
+            return
+
+        index = None
+        if len(subs) >= 64:
+            if self._index_version != version:
+                self._index = _RangeIndex(filters)
+                self._index_version = version
+            index = self._index
+            if index.dense:
+                index = None  # too nested to index: linear filter
+
+        if index is not None:
+            # interval-stabbing: cost ∝ events x matches, independent of W.
+            # Group by cover tuple first so the watchers of one namespace
+            # SHARE one event-list object (20 watchers x N events used to
+            # allocate 20 lists — pure GC pressure at informer scale).
+            groups: dict[int, tuple[tuple[int, ...], list]] = {}
+            for ev in batch:
+                cover = index.lookup(ev.key)
+                if not cover:
+                    continue
+                g = groups.get(id(cover))
+                if g is None:
+                    groups[id(cover)] = (cover, [ev])
+                else:
+                    g[1].append(ev)
+            per_watcher = {}
+            multi: dict[int, list[list]] = {}  # broad watchers: pieces to merge
+            for cover, evs in groups.values():
+                first_rev = evs[0].revision
+                for wid in cover:
+                    min_rev = filters[wid][2]
+                    mine = (
+                        evs if min_rev <= first_rev
+                        else [e for e in evs if e.revision >= min_rev]
+                    )
+                    if not mine:
+                        continue
+                    if wid in multi:
+                        multi[wid].append(mine)
+                    elif wid in per_watcher:
+                        multi[wid] = [per_watcher.pop(wid), mine]
+                    else:
+                        per_watcher[wid] = mine
+            # a watcher spanning several cover segments merges its
+            # revision-ordered pieces once, not per segment
+            if multi:
+                import heapq
+
+                for wid, pieces in multi.items():
+                    per_watcher[wid] = list(
+                        heapq.merge(*pieces, key=lambda e: e.revision)
+                    )
+        else:
+            per_watcher = {}
+            for wid, _q in subs:
+                start, end, min_rev = filters[wid]
+                per_watcher[wid] = [
+                    ev
+                    for ev in batch
+                    if ev.revision >= min_rev and _in_range(ev.key, start, end)
+                ]
+
+        dead: list[int] = []
+        delivered = False
+        for wid, q in subs:
+            events = per_watcher.get(wid)
+            if not events:
+                continue
+            try:
+                q.put_nowait(events)
+                delivered = True
+            except queue.Full:
+                dead.append(wid)  # slow consumer: drop it
+        if delivered and self._metrics is not None and batch[0].ts:
+            # commit-revision -> subscriber-queue delivery lag, one
+            # observation per fan-out (the oldest event bounds the batch)
+            self._metrics.emit_histogram(
+                "kb.watch.lag.seconds", time.monotonic() - batch[0].ts,
+                point="queue",
+            )
+        if dead and self._metrics is not None:
+            # the documented backlog-bound drop (SUBSCRIBER_BUFFER): visible
+            # on /metrics so the SLO report can count slow-consumer drops
+            self._metrics.emit_counter("kb.watch.dropped", len(dead))
+        for wid in dead:
+            self.delete_watcher(wid)
+
+    def close(self) -> None:
+        with self._lock:
+            wids = list(self._subs)
+        for wid in wids:
+            self.delete_watcher(wid)

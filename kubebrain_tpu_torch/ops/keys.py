@@ -1,0 +1,146 @@
+"""Fixed-width packed key representation for device kernels.
+
+Variable-length byte keys defeat vectorization; Kubernetes registry keys are
+bounded and NUL-free, so we pack each user key into a zero-padded row of
+``KEY_WIDTH`` bytes stored as ``KEY_WIDTH//4`` big-endian ``uint32`` chunks:
+
+- zero padding + NUL-free keys ⇒ padded byte order == true lexicographic
+  order (the coder's split byte is also NUL — same design decision,
+  kubebrain_tpu_torch/coder/__init__.py);
+- big-endian u32 packing ⇒ byte order == unsigned-int tuple order, quartering
+  the comparisons per key versus byte-wise compare;
+- prefix matches of arbitrary length become masked u32 compares
+  (see ``chunk_prefix_masks``).
+
+Revisions are split into (hi, lo) ``uint32`` pairs — TPUs have no native
+int64, and revision compares are cheap next to key compares.
+
+Reference analogue: the internal-key decode + byte compare in the scan worker
+(scanner.go:435, coder/normal.go:58-71) — here performed once at pack time
+instead of per row per scan.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+KEY_WIDTH = 128  # bytes; must be % 4 == 0; k8s registry keys fit comfortably
+CHUNKS = KEY_WIDTH // 4
+
+
+def pack_keys(keys: list[bytes], width: int = KEY_WIDTH) -> tuple[np.ndarray, np.ndarray]:
+    """Pack N variable-length keys → (uint32[N, width//4] big-endian chunks,
+    int32[N] lengths). Keys longer than ``width`` are rejected."""
+    n = len(keys)
+    out = np.zeros((n, width), dtype=np.uint8)
+    lens = np.zeros((n,), dtype=np.int32)
+    for i, k in enumerate(keys):
+        if len(k) > width:
+            raise ValueError(f"key length {len(k)} exceeds KEY_WIDTH {width}")
+        out[i, : len(k)] = np.frombuffer(k, dtype=np.uint8)
+        lens[i] = len(k)
+    return bytes_to_chunks(out), lens
+
+
+def bytes_to_chunks(rows: np.ndarray) -> np.ndarray:
+    """uint8[N, W] → big-endian uint32[N, W//4]."""
+    n, w = rows.shape
+    assert w % 4 == 0
+    be = rows.reshape(n, w // 4, 4).astype(np.uint32)
+    return (be[..., 0] << 24) | (be[..., 1] << 16) | (be[..., 2] << 8) | be[..., 3]
+
+
+def chunks_to_u8(chunks: np.ndarray) -> np.ndarray:
+    """big-endian uint32[N, C] → uint8[N, C*4] (inverse of bytes_to_chunks)."""
+    n, c = chunks.shape
+    out = np.zeros((n, c * 4), dtype=np.uint8)
+    out[:, 0::4] = (chunks >> 24) & 0xFF
+    out[:, 1::4] = (chunks >> 16) & 0xFF
+    out[:, 2::4] = (chunks >> 8) & 0xFF
+    out[:, 3::4] = chunks & 0xFF
+    return out
+
+
+def chunks_to_bytes(chunks: np.ndarray, lens: np.ndarray) -> list[bytes]:
+    """Inverse of pack_keys for host-side materialization."""
+    out = chunks_to_u8(chunks)
+    return [out[i, : lens[i]].tobytes() for i in range(len(out))]
+
+
+def u8_void(rows: np.ndarray) -> np.ndarray:
+    """uint8[N, W] → void[N] scalar view: rows compare as raw bytes
+    (memcmp order), so one ``np.searchsorted``/``np.unique`` resolves many
+    key probes at once. Zero-padded NUL-free keys keep the padded compare
+    equal to true byte order — the invariant the whole packed layout
+    (and the encoded layout, storage/cuda/encode.py) rests on."""
+    rows = np.ascontiguousarray(rows)
+    n, w = rows.shape
+    assert w > 0, "void view of zero-width rows"
+    return rows.view(f"V{w}").reshape(n)
+
+
+def gather_arena(arena: np.ndarray, offsets: np.ndarray, perm: np.ndarray):
+    """Reorder variable-length records of a byte arena by ``perm``.
+
+    Returns (new_arena uint8[∑len], new_offsets uint64[len(perm)+1]) —
+    fully vectorized (per-row source ranges expanded with repeat+arange).
+    """
+    offsets = offsets.astype(np.int64)
+    lens = (offsets[1:] - offsets[:-1])[perm]
+    new_offsets = np.zeros(len(perm) + 1, dtype=np.int64)
+    np.cumsum(lens, out=new_offsets[1:])
+    total = int(new_offsets[-1])
+    if total == 0:
+        return np.zeros(0, dtype=np.uint8), new_offsets.astype(np.uint64)
+    starts = offsets[:-1][perm]
+    idx = np.arange(total, dtype=np.int64)
+    idx += np.repeat(starts - new_offsets[:-1], lens)
+    return arena[idx], new_offsets.astype(np.uint64)
+
+
+def pack_one(key: bytes, width: int = KEY_WIDTH) -> np.ndarray:
+    """Single key → uint32[width//4] (for range bounds)."""
+    return pack_keys([key], width)[0][0]
+
+
+def canonicalize_bound(key: bytes) -> bytes:
+    """Rewrite a NUL-bearing range bound for the zero-padded compare.
+
+    Stored keys are NUL-free, so a bound like etcd's continuation token
+    ``base + b"\\0"`` means "strictly after base" — but zero-padded it
+    compares EQUAL to base. ``base + b"\\0\\1"`` sits strictly between base
+    and every longer NUL-free key, preserving the intended position.
+    """
+    if b"\x00" not in key:
+        return key
+    base = key.split(b"\x00", 1)[0]
+    return base + b"\x00\x01"
+
+
+def split_revs(revs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """uint64[N] → (hi uint32[N], lo uint32[N])."""
+    revs = np.asarray(revs, dtype=np.uint64)
+    return (revs >> np.uint64(32)).astype(np.uint32), (revs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def join_revs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    return (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(lo, dtype=np.uint64)
+
+
+def chunk_prefix_masks(prefixes: list[bytes], width: int = KEY_WIDTH) -> tuple[np.ndarray, np.ndarray]:
+    """Prefixes → (chunks uint32[P, C], masks uint32[P, C]) such that key k
+    starts with prefix p  ⇔  all((k_chunks & masks[p]) == chunks[p]).
+
+    A prefix of length L covers L//4 full chunks (mask 0xFFFFFFFF) plus,
+    big-endian, the HIGH (L%4)*8 bits of the next chunk; chunks beyond the
+    prefix get mask 0 (always match).
+    """
+    chunks, _lens = pack_keys(prefixes, width)
+    c = width // 4
+    masks = np.zeros((len(prefixes), c), dtype=np.uint32)
+    for i, p in enumerate(prefixes):
+        full, rem = divmod(len(p), 4)
+        masks[i, :full] = 0xFFFFFFFF
+        if rem:
+            masks[i, full] = np.uint32(0xFFFFFFFF) << np.uint32(8 * (4 - rem))
+    return chunks & masks, masks

@@ -1,0 +1,404 @@
+"""Order-preserving prefix/dictionary encoding for mirror keys.
+
+HBM is the binding constraint on dataset size: the raw mirror spends
+``KEY_WIDTH`` (128) bytes per row on the packed user key, yet kube-style
+keys (``/registry/pods/<ns>/<name>``) are hierarchically redundant — long
+shared prefixes are the norm (FOCUS, arxiv 2505.24221). Following LSM-OPD
+(arxiv 2508.11862), the scan kernels execute directly on the compressed
+rows: keys are stored as ``(code, suffix)`` where numeric code order equals
+prefix byte order, so lexicographic order of ENCODED rows equals byte order
+of RAW keys and ``_lex_less`` works unchanged on the narrower chunk arrays.
+Only visible rows are ever decoded, at host materialization.
+
+The scheme (interval front coding):
+
+- the dictionary is a sorted list of m **boundary** strings; key ``k``
+  belongs to bucket ``j = bisect_right(boundaries, k)`` (m+1 buckets, so
+  bucket index is monotone in ``k`` by construction);
+- each bucket carries a **strip** string — a certified common prefix of
+  every mirror key routed to it (computed from the data: keys are sorted,
+  so the bucket's lcp is ``lcp(first, last)``);
+- ``enc(k) = code(j) || k[len(strip_j):] || zero padding`` with the code a
+  big-endian uint32 occupying chunk 0. Within a bucket the shared strip is
+  gone, so suffix order == key order; across buckets the code decides; the
+  map is injective. Stored keys are NUL-free, so zero-padded fixed-width
+  compare equals true byte-string compare — the same invariant the raw
+  packed layout relies on (ops/keys.py).
+
+Query bounds are encoded host-side through the same dictionary
+(:meth:`KeyEncoding.encode_start_bound` / :meth:`encode_end_bound`) with
+explicit handling of bounds that fall between or outside dictionary
+entries; the docstrings there carry the case analysis, and
+tests/test_encode.py carries the machine-checked proof that visibility is
+never widened or narrowed.
+
+Delta overlays and the dirty-shard republish path re-encode incrementally
+against the published dictionary (:meth:`encode_keys` on the merged rows);
+a key that no longer fits — wrong bucket strip, or a suffix past the width
+budget — raises :class:`EncodeOverflow` and the caller falls back to the
+full re-dictionary rebuild.
+"""
+
+from __future__ import annotations
+
+import bisect
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ...ops import keys as keyops
+
+#: bytes of fixed-width bucket code at the head of every encoded key —
+#: one uint32 chunk, so codes ride the existing big-endian chunk compare
+CODE_BYTES = 4
+#: suffix-width headroom past the build-time max, so routine new keys
+#: (a pod name one digit longer) don't force a re-dictionary rebuild
+SUFFIX_SLACK = 8
+#: dictionary size cap; past it boundaries are decimated (strips shorten,
+#: compression degrades gracefully, correctness is untouched)
+MAX_DICT = 1 << 20
+
+
+class EncodeOverflow(Exception):
+    """A key cannot be encoded against this dictionary (wrong bucket strip
+    or suffix past the width budget) — the mirror needs a re-dictionary
+    rebuild."""
+
+
+def _group_by_code(codes: np.ndarray):
+    """Yield ``(code, row-index array)`` groups — one stable argsort plus
+    run-length slicing, O(n log n) total instead of a full-array scan per
+    distinct code (a 20M-row rebuild over tens of thousands of directory
+    buckets must not be O(rows × buckets)). Callers pass sorted rows, but
+    correctness does not depend on it."""
+    if len(codes) == 0:
+        return
+    order = np.argsort(codes, kind="stable")
+    sc = codes[order]
+    starts = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
+    ends = np.r_[starts[1:], len(order)]
+    for s, e in zip(starts, ends):
+        yield int(sc[s]), order[s:e]
+
+
+def _last_slash_len(keys_u8: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Per row: length of the directory prefix (through the last ``/``),
+    0 when the key has no ``/`` — vectorized."""
+    n, w = keys_u8.shape
+    pos = np.arange(1, w + 1, dtype=np.int64)[None, :]
+    is_slash = (keys_u8 == ord("/")) & (pos <= np.asarray(lens)[:, None])
+    return (is_slash * pos).max(axis=1)
+
+
+def _succ(prefix: bytes) -> bytes:
+    """Smallest string greater than every extension of ``prefix`` (etcd's
+    prefix_end); prefixes here never end in 0xff (they end in ``/``)."""
+    return prefix[:-1] + bytes([prefix[-1] + 1])
+
+
+@dataclass
+class KeyEncoding:
+    """The published dictionary: immutable once a Mirror references it
+    (copy-on-write like the mirror arrays themselves)."""
+
+    boundaries: list[bytes]          # sorted, m entries
+    strips: list[bytes]              # m+1 entries; strips[j] for bucket j
+    suffix_width: int                # encoded suffix bytes, % 4 == 0
+    raw_width: int                   # the raw packed key width this replaces
+    strip_lens: np.ndarray = field(init=False)   # int64[m+1]
+    _strips_mat: np.ndarray = field(init=False)  # uint8[m+1, max_strip]
+    _bounds_width: int = field(init=False)       # boundary pad width
+    _bounds_void: np.ndarray = field(init=False)  # void[m] sorted view
+
+    def __post_init__(self):
+        m1 = len(self.strips)
+        self.strip_lens = np.array([len(s) for s in self.strips], np.int64)
+        w = max(1, int(self.strip_lens.max()) if m1 else 1)
+        self._strips_mat = np.zeros((m1, w), dtype=np.uint8)
+        for j, s in enumerate(self.strips):
+            if s:
+                self._strips_mat[j, : len(s)] = np.frombuffer(s, np.uint8)
+        # boundary matrix/void view cached once per (immutable) dictionary:
+        # every incremental republish routes its dirty partition through
+        # _buckets_np, which must not re-pad the boundary list per call
+        wb = max(1, self.raw_width,
+                 max((len(b) for b in self.boundaries), default=0))
+        self._bounds_width = wb
+        b_mat = np.zeros((len(self.boundaries), wb), dtype=np.uint8)
+        for i, b in enumerate(self.boundaries):
+            b_mat[i, : len(b)] = np.frombuffer(b, np.uint8)
+        self._bounds_void = b_mat.view(f"V{wb}").reshape(-1)
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def width(self) -> int:
+        """Encoded key bytes: code chunk + suffix."""
+        return CODE_BYTES + self.suffix_width
+
+    @property
+    def chunks(self) -> int:
+        return self.width // 4
+
+    @property
+    def n_codes(self) -> int:
+        return len(self.boundaries) + 1
+
+    # -------------------------------------------------------------- routing
+    def bucket_of(self, key: bytes) -> int:
+        return bisect.bisect_right(self.boundaries, key)
+
+    def _buckets_np(self, keys_u8: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Vectorized bucket assignment: one searchsorted over zero-padded
+        void views (keys and boundaries are NUL-free, so the padded compare
+        is the true byte compare)."""
+        if not self.boundaries:
+            return np.zeros(len(keys_u8), dtype=np.int64)
+        w = self._bounds_width
+        if keys_u8.shape[1] > w:  # wider than any key this dict was built
+            w = keys_u8.shape[1]  # for — pad the boundaries up instead
+            b_mat = np.zeros((len(self.boundaries), w), dtype=np.uint8)
+            for i, b in enumerate(self.boundaries):
+                b_mat[i, : len(b)] = np.frombuffer(b, np.uint8)
+            bv = keyops.u8_void(b_mat)
+        else:
+            bv = self._bounds_void
+        k_mat = keys_u8
+        if keys_u8.shape[1] < w:
+            k_mat = np.zeros((len(keys_u8), w), dtype=np.uint8)
+            k_mat[:, : keys_u8.shape[1]] = keys_u8
+        kv = keyops.u8_void(k_mat)
+        return np.searchsorted(bv, kv, side="right").astype(np.int64)
+
+    # ------------------------------------------------------------- encoding
+    def encode_keys(self, keys_u8: np.ndarray,
+                    lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Raw zero-padded keys → (enc_u8[n, width], suffix_lens[n]).
+
+        Raises :class:`EncodeOverflow` when any key does not start with its
+        bucket's strip or its suffix exceeds the width budget — the caller
+        (incremental delta merge) then falls back to a full re-dictionary
+        rebuild. Build-time callers can't overflow by construction.
+        """
+        n = len(keys_u8)
+        lens = np.asarray(lens, dtype=np.int64)
+        enc = np.zeros((n, self.width), dtype=np.uint8)
+        sfx_lens = np.zeros(n, dtype=np.int32)
+        if n == 0:
+            return enc, sfx_lens
+        codes = self._buckets_np(keys_u8, lens)
+        enc[:, 0] = (codes >> 24) & 0xFF
+        enc[:, 1] = (codes >> 16) & 0xFF
+        enc[:, 2] = (codes >> 8) & 0xFF
+        enc[:, 3] = codes & 0xFF
+        sl = self.strip_lens[codes]
+        if (lens < sl).any() or (lens - sl > self.suffix_width).any():
+            raise EncodeOverflow("suffix outside the width budget")
+        sfx_lens[:] = lens - sl
+        # group rows by bucket (at most #distinct codes python iterations;
+        # rows of one bucket need one shared shift, which numpy slices do)
+        for code, rows in _group_by_code(codes):
+            s = int(self.strip_lens[code])
+            if s:
+                strip = self._strips_mat[code, :s]
+                if (keys_u8[rows, :s] != strip).any():
+                    raise EncodeOverflow(
+                        f"key outside bucket {int(code)} strip")
+            take = min(self.suffix_width, keys_u8.shape[1] - s)
+            if take > 0:
+                enc[np.ix_(rows, np.arange(CODE_BYTES, CODE_BYTES + take))] = \
+                    keys_u8[np.ix_(rows, np.arange(s, s + take))]
+        return enc, sfx_lens
+
+    def decode_rows(self, enc_chunks: np.ndarray,
+                    suffix_lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Encoded chunk rows → (raw_u8[n, raw_width], raw_lens[n]) — the
+        inverse of :meth:`encode_keys`, used only at the named host
+        materialization funnels (kblint KB116)."""
+        enc_u8 = keyops.chunks_to_u8(enc_chunks)
+        n = len(enc_u8)
+        suffix_lens = np.asarray(suffix_lens, dtype=np.int64)
+        codes = (
+            (enc_u8[:, 0].astype(np.int64) << 24)
+            | (enc_u8[:, 1].astype(np.int64) << 16)
+            | (enc_u8[:, 2].astype(np.int64) << 8)
+            | enc_u8[:, 3].astype(np.int64)
+        )
+        raw = np.zeros((n, self.raw_width), dtype=np.uint8)
+        raw_lens = (self.strip_lens[codes] + suffix_lens).astype(np.int32)
+        for code, rows in _group_by_code(codes):
+            s = int(self.strip_lens[code])
+            if s:
+                raw[np.ix_(rows, np.arange(s))] = self._strips_mat[code, :s]
+            take = min(self.suffix_width, self.raw_width - s)
+            if take > 0:
+                raw[np.ix_(rows, np.arange(s, s + take))] = \
+                    enc_u8[np.ix_(rows, np.arange(CODE_BYTES, CODE_BYTES + take))]
+        return raw, raw_lens
+
+    def decode_one(self, enc_chunk_row: np.ndarray, suffix_len: int) -> bytes:
+        raw, lens = self.decode_rows(enc_chunk_row[None, :],
+                                     np.array([suffix_len]))
+        return raw[0, : int(lens[0])].tobytes()
+
+    # ---------------------------------------------------------- probes
+    def encode_probe(self, key: bytes) -> bytes | None:
+        """Exact-match probe: the encoded form of ``key``, or None when no
+        mirror row can equal ``key`` under this dictionary (key outside its
+        bucket's strip, or suffix past the width — every MIRROR key starts
+        with its bucket's strip and fits the width by construction)."""
+        j = self.bucket_of(key)
+        strip = self.strips[j]
+        if not key.startswith(strip) or len(key) - len(strip) > self.suffix_width:
+            return None
+        out = np.zeros(self.width, dtype=np.uint8)
+        out[0] = (j >> 24) & 0xFF
+        out[1] = (j >> 16) & 0xFF
+        out[2] = (j >> 8) & 0xFF
+        out[3] = j & 0xFF
+        sfx = key[len(strip):]
+        if sfx:
+            out[CODE_BYTES : CODE_BYTES + len(sfx)] = np.frombuffer(sfx, np.uint8)
+        return out.tobytes()
+
+    # ---------------------------------------------------------- query bounds
+    def _code_floor(self, j: int) -> np.ndarray:
+        out = np.zeros(self.width, dtype=np.uint8)
+        out[0] = (j >> 24) & 0xFF
+        out[1] = (j >> 16) & 0xFF
+        out[2] = (j >> 8) & 0xFF
+        out[3] = j & 0xFF
+        return out
+
+    def _encode_bound(self, bound: bytes) -> np.ndarray:
+        """The shared exact bound mapping — one uint8[width] value ``v``
+        such that for EVERY mirror key ``k``:  ``k >= bound  ⇔  enc(k) >= v``
+        (equivalently ``k < bound ⇔ enc(k) < v``), so one mapping serves the
+        inclusive start and the exclusive end alike.
+
+        Case analysis (proof test: tests/test_encode.py):
+
+        - ``bound`` starts with its bucket's strip → ``code || suffix``;
+          a suffix past the width budget is truncated and the whole value
+          incremented by one: the only row the truncation could confuse is
+          ``enc == code||trunc`` i.e. key == strip+trunc, which is < bound
+          (bound is longer), and +1 classifies it below the bound — exact;
+        - bound sorts below every possible key of its bucket (it is a
+          proper prefix of the strip, or diverges below it) →
+          ``code || zeros``: the whole bucket and everything after is
+          >= bound, everything before is < bound;
+        - bound sorts above every possible key of its bucket (diverges
+          above the strip) → ``code+1 || zeros``.
+
+        Bucket index is monotone in the bound, and every mirror key starts
+        with its bucket's strip, so cross-bucket classification is exact by
+        the code compare alone.
+        """
+        j = self.bucket_of(bound)
+        strip = self.strips[j]
+        if bound.startswith(strip):
+            sfx = bound[len(strip):]
+            v = self._code_floor(j)
+            take = min(len(sfx), self.suffix_width)
+            if take:
+                v[CODE_BYTES : CODE_BYTES + take] = np.frombuffer(
+                    sfx[:take], np.uint8)
+            if len(sfx) > self.suffix_width:
+                _increment_u8(v)
+            return v
+        if bound < strip:
+            # proper prefix of the strip, or diverging below it: every key
+            # of this bucket (all start with strip) is > bound
+            return self._code_floor(j)
+        # diverging above the strip: every key of this bucket is < bound
+        return self._code_floor(j + 1)
+
+    def encode_start_bound(self, start: bytes) -> np.ndarray:
+        """Inclusive start bound → uint8[width] encoded bound for the
+        unchanged ``lex_geq`` kernel compare. Exact: never widens or
+        narrows visibility (see :meth:`_encode_bound`)."""
+        return self._encode_bound(start)
+
+    def encode_end_bound(self, end: bytes) -> np.ndarray:
+        """Exclusive end bound → uint8[width] encoded bound for the
+        unchanged ``lex_less`` kernel compare. The same mapping as the
+        start bound: ``k < end ⇔ enc(k) < v`` is the complement of
+        ``k >= end ⇔ enc(k) >= v``."""
+        return self._encode_bound(end)
+
+
+def _increment_u8(v: np.ndarray) -> None:
+    """v += 1 as a big-endian integer, in place. Cannot overflow here: the
+    code chunk never reaches 2^32-1 (dictionaries are capped at MAX_DICT)."""
+    for i in range(len(v) - 1, -1, -1):
+        if v[i] != 0xFF:
+            v[i] += 1
+            return
+        v[i] = 0
+    raise AssertionError("encoded bound overflow")
+
+
+def build_encoding(keys_u8: np.ndarray, lens: np.ndarray, raw_width: int,
+                   max_dict: int = MAX_DICT,
+                   suffix_slack: int = SUFFIX_SLACK) -> KeyEncoding | None:
+    """Derive a dictionary from the snapshot's (sorted) raw keys, or None
+    when encoding would not beat the raw layout.
+
+    Boundaries are the distinct directory prefixes (through the last
+    ``/``) plus each directory's successor string, so a directory's files
+    occupy their own buckets and keep the full directory as strip even when
+    a shorter sibling directory follows. Strips are computed from the data
+    (lcp of the bucket's first and last key — rows are sorted), so they are
+    certified common prefixes no matter how the boundaries interleave.
+    """
+    n = len(keys_u8)
+    if n == 0:
+        return None
+    lens = np.asarray(lens, dtype=np.int64)
+    dir_lens = _last_slash_len(keys_u8, lens)
+    # distinct directories, preserving sort order (keys are sorted but
+    # their directories interleave; void-unique keeps it cheap)
+    w = keys_u8.shape[1]
+    dirs_u8 = np.where(
+        np.arange(w)[None, :] < dir_lens[:, None], keys_u8, 0
+    ).astype(np.uint8)
+    uniq = np.unique(keyops.u8_void(np.ascontiguousarray(dirs_u8)))
+    dir_list = []
+    for v in uniq:
+        b = v.tobytes().rstrip(b"\x00")
+        if b:
+            dir_list.append(b)
+    if len(dir_list) > max_dict // 2:
+        stride = (2 * len(dir_list) + max_dict - 1) // max_dict
+        dir_list = dir_list[::stride]
+    boundaries = sorted({d for d in dir_list} | {_succ(d) for d in dir_list})
+    if not boundaries:
+        return None
+
+    enc = KeyEncoding(boundaries=boundaries,
+                      strips=[b""] * (len(boundaries) + 1),
+                      suffix_width=0, raw_width=raw_width)
+    codes = enc._buckets_np(keys_u8, lens)
+    strips: list[bytes] = [b""] * (len(boundaries) + 1)
+    max_sfx = 0
+    for code, rows in _group_by_code(codes):
+        first, last = rows[0], rows[-1]
+        fl, ll = int(lens[first]), int(lens[last])
+        limit = min(fl, ll)
+        diff = np.nonzero(
+            keys_u8[first, :limit] != keys_u8[last, :limit])[0]
+        strip_len = int(diff[0]) if len(diff) else limit
+        # truncate the strip to the last ``/`` inside it: a raw-lcp strip
+        # over-fits (lcp of pod-00000..pod-00049 includes "pod-000", so
+        # pod-00150 would force a full re-dictionary rebuild); a
+        # directory-aligned strip keeps routine key growth incremental
+        slashes = np.nonzero(keys_u8[first, :strip_len] == ord("/"))[0]
+        if len(slashes):
+            strip_len = int(slashes[-1]) + 1
+        strips[int(code)] = keys_u8[first, :strip_len].tobytes()
+        max_sfx = max(max_sfx, int((lens[rows] - strip_len).max()))
+
+    suffix_width = -(-(max_sfx + suffix_slack) // 4) * 4
+    if CODE_BYTES + suffix_width >= raw_width:
+        return None  # no gain — serve the raw layout
+    return KeyEncoding(boundaries=boundaries, strips=strips,
+                       suffix_width=suffix_width, raw_width=raw_width)

@@ -1,0 +1,78 @@
+"""Storage error taxonomy that drives MVCC control flow.
+
+Reference: pkg/storage/errors.go:23-75. Three errors matter to the layers
+above the engine:
+
+- ``KeyNotFoundError`` — point get missed.
+- ``CASFailedError`` — a conditional write (PutIfNotExist / CAS / DelCurrent)
+  lost a race. It carries a ``Conflict`` with the index of the failing op and
+  the value the engine observed, so the caller can skip a re-read (reference
+  Conflict{Idx,Key,Val}, errors.go:47-75 — used by the create→update
+  conversion in creator/naive.go:62-86).
+- ``UncertainResultError`` — the engine cannot know whether the batch
+  committed (e.g. a commit-phase timeout in a distributed engine). The write
+  path must neither confirm nor deny; the async FIFO retry repairs it later
+  (reference pkg/backend/retry/).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+class StorageError(Exception):
+    pass
+
+
+class KeyNotFoundError(StorageError):
+    def __init__(self, key: bytes = b""):
+        super().__init__(f"key not found: {key!r}")
+        self.key = key
+
+
+@dataclass
+class Conflict:
+    """Details of a failed conditional op inside a batch.
+
+    ``index`` is the position of the op in the batch; ``value`` is the value
+    the engine saw for ``key`` at conflict time (None if the key was absent),
+    letting callers avoid a follow-up read.
+    """
+
+    index: int
+    key: bytes
+    value: bytes | None
+
+
+class CASFailedError(StorageError):
+    def __init__(self, conflict: Conflict | None = None):
+        super().__init__(f"cas failed: {conflict}")
+        self.conflict = conflict
+
+
+class UncertainResultError(StorageError):
+    """Commit outcome unknowable; see reference storage/errors.go:23-45."""
+
+    def __init__(self, cause: BaseException | str = ""):
+        super().__init__(f"uncertain result: {cause}")
+        self.cause = cause
+
+
+class RevisionDriftBackError(StorageError):
+    """The revision sequencer observed time going backwards: the engine saw
+    a record at ``latest`` >= the op's dealt revision (0 = unreported).
+
+    Reference: pkg/backend/backend.go:188-199 (ErrRevisionDriftBack).
+    """
+
+    def __init__(self, message: str = "revision drift", latest: int = 0):
+        super().__init__(message)
+        self.latest = latest
+
+
+class InvalidArgumentError(StorageError):
+    pass
+
+
+class TimeoutError_(StorageError):
+    pass

@@ -1,0 +1,375 @@
+"""End-to-end request tracing with device-time attribution.
+
+Every KV RPC becomes one root span with named *stages* — the per-layer
+time slices of the serving path:
+
+    endpoint_recv    request decode + peer revision sync (service terminal)
+    queue_wait       scheduler admission: enqueue -> worker pickup
+    coalesce_join    follower attached to a coalesced leader's execution
+    device_dispatch  building + enqueuing the device kernel (async dispatch)
+    device_compute   device busy time, timed across ``block_until_ready`` /
+                     the first blocking transfer off the device
+    host_copy        materializing rows on the host (overlay merge, sort)
+    result_deliver   worker completion -> waiter wakeup (sched handoff)
+    response_encode  building the wire response
+    backend_write    Txn write path (create/update/delete)
+
+Spans land in a bounded in-memory ring (`/debug/traces`), slow requests
+additionally in a slow-request log (``--trace-slow-ms``), and every stage
+duration is emitted as the ``kb_rpc_stage_seconds{stage=...}`` histogram so
+per-stage time shows up on ``/metrics`` next to the sched gauges.
+
+The tracer also keeps per-stage EWMAs; ``dispatch_rtt()`` (device_dispatch
++ device_compute) is the measured device round trip the scheduler uses to
+size its pipeline depth when ``--sched-depth 0`` (auto) is configured —
+the ROADMAP "size --sched-depth from the measured dispatch RTT" lever.
+
+Trace context propagates as a W3C ``traceparent`` header
+(``00-<trace_id>-<span_id>-01``) in gRPC metadata: client.py injects it,
+the service terminals extract it, so a client-side trace id finds its
+server-side span tree in ``/debug/traces``.
+
+All timestamps are ``time.monotonic()`` — the same clock the scheduler
+stamps ``_Request.enqueued`` with, so cross-thread stage math never mixes
+clock domains.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import logging
+import os
+import re
+import threading
+import time
+from collections import deque
+from typing import Any, Iterator
+
+
+logger = logging.getLogger("kubebrain.trace")
+
+_SPAN: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
+    "kb_trace_span", default=None
+)
+
+_TRACEPARENT_RE = re.compile(
+    r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$"
+)
+
+#: histogram fed by every completed stage (prom: kb_rpc_stage_seconds)
+STAGE_METRIC = "kb.rpc.stage.seconds"
+
+
+def _gen_id(nbytes: int) -> str:
+    return os.urandom(nbytes).hex()
+
+
+def parse_traceparent(header: str | bytes | None) -> tuple[str, str] | None:
+    """(trace_id, parent_span_id) from a W3C traceparent header, or None."""
+    if not header:
+        return None
+    if isinstance(header, bytes):
+        try:
+            header = header.decode("ascii")
+        except UnicodeDecodeError:
+            return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if not m:
+        return None
+    trace_id, span_id = m.group(1), m.group(2)
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return trace_id, span_id
+
+
+def make_traceparent(span: "Span | None" = None) -> str:
+    """W3C traceparent for an outgoing call: continues ``span``'s trace (or
+    the ambient one) with a fresh span id, else starts a new trace."""
+    span = span if span is not None else _SPAN.get()
+    trace_id = span.trace_id if span is not None else _gen_id(16)
+    return f"00-{trace_id}-{_gen_id(8)}-01"
+
+
+class Span:
+    """One traced request. ``stages`` is a list of
+    ``(name, offset_seconds, duration_seconds)`` relative to ``t0``;
+    appends are GIL-atomic, so worker threads record stages directly."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "t0", "wall0",
+                 "duration", "stages", "error", "hwm")
+
+    def __init__(self, name: str, trace_id: str | None = None,
+                 parent_id: str | None = None) -> None:
+        self.name = name
+        self.trace_id = trace_id or _gen_id(16)
+        self.span_id = _gen_id(8)
+        self.parent_id = parent_id
+        self.t0 = time.monotonic()
+        self.wall0 = time.time()
+        self.duration: float | None = None
+        self.stages: list[tuple[str, float, float]] = []
+        self.error: str | None = None
+        self.hwm = 0.0  # latest recorded stage end (offset); gap-glue anchor
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start_unix": round(self.wall0, 6),
+            "duration_ms": (
+                round(self.duration * 1e3, 4) if self.duration is not None else None
+            ),
+            "error": self.error,
+            "stages": [
+                {
+                    "stage": name,
+                    "offset_ms": round(off * 1e3, 4),
+                    "duration_ms": round(dur * 1e3, 4),
+                }
+                for name, off, dur in list(self.stages)
+            ],
+        }
+
+
+class Tracer:
+    """Process-wide span recorder: bounded trace ring + slow-request log +
+    per-stage EWMAs + the stage-latency histogram."""
+
+    #: stages whose EWMAs form the device dispatch RTT the scheduler sizes
+    #: its pipeline depth from (``--sched-depth 0``)
+    RTT_STAGES = ("device_dispatch", "device_compute")
+
+    def __init__(self, capacity: int = 512, slow_ms: float = 500.0,
+                 metrics: Any = None, slow_capacity: int = 128) -> None:
+        self._lock = threading.Lock()
+        self._ring: deque[Span] = deque(maxlen=capacity)
+        self._slow: deque[Span] = deque(maxlen=slow_capacity)
+        self.slow_ms = slow_ms
+        self.metrics = metrics
+        self._ewma: dict[str, float] = {}
+        # device-sourced EWMAs only (record_stage(..., device=True)): the
+        # auto-depth divisor. Host-path scans (generic scanner, the TPU
+        # engine's small-limit host fallback) report the same *stage names*
+        # for uniform traces but must not shrink the compute EWMA — a
+        # µs-scale host scan in the divisor would pin auto depth at the
+        # clamp ceiling and oversubscribe the device queue.
+        self._rtt: dict[str, float] = {}
+        self._ewma_alpha = 0.2
+        # KB_TRACE=0 turns span *recording* off (stage histograms still emit
+        # when metrics are configured); default on — the per-RPC cost is a
+        # few monotonic() reads and list appends
+        self.enabled = os.environ.get("KB_TRACE", "1") != "0"
+
+    # ------------------------------------------------------------ configure
+    def configure(self, metrics: Any = None, slow_ms: float | None = None,
+                  capacity: int | None = None) -> None:
+        if metrics is not None:
+            self.metrics = metrics
+        if slow_ms is not None:
+            self.slow_ms = slow_ms
+        if capacity is not None:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=capacity)
+
+    def reset(self) -> None:
+        """Drop recorded traces and EWMAs (tests / bench isolation)."""
+        with self._lock:
+            self._ring.clear()
+            self._slow.clear()
+            self._ewma = {}
+            self._rtt = {}
+
+    # ---------------------------------------------------------------- spans
+    def current(self) -> Span | None:
+        return _SPAN.get()
+
+    @contextlib.contextmanager
+    def span(self, name: str,
+             traceparent: str | bytes | None = None) -> Iterator[Span | None]:
+        """Root-span scope. A nested call reuses the active span — service
+        terminals stack (front backhaul -> KVService), one RPC = one span."""
+        active = _SPAN.get()
+        if active is not None or not self.enabled:
+            yield active
+            return
+        parent = parse_traceparent(traceparent)
+        sp = Span(name, trace_id=parent[0] if parent else None,
+                  parent_id=parent[1] if parent else None)
+        token = None
+        try:
+            token = _SPAN.set(sp)
+            yield sp
+        except BaseException as e:
+            sp.error = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            # finish FIRST, and unconditionally: the ring append is the
+            # side that must survive any teardown hiccup — a span that
+            # opened but never reaches the ring would under-count exactly
+            # the failed requests
+            self.finish(sp)
+            if token is not None:
+                _SPAN.reset(token)
+
+    @contextlib.contextmanager
+    def use(self, span: Span | None) -> Iterator[None]:
+        """Adopt ``span`` as the ambient span on this thread (scheduler
+        workers execute a request captured on the submitting thread)."""
+        if span is None:
+            yield
+            return
+        token = _SPAN.set(span)
+        try:
+            yield
+        finally:
+            _SPAN.reset(token)
+
+    def finish(self, span: Span) -> None:
+        span.duration = time.monotonic() - span.t0
+        m = self.metrics
+        if m is not None:
+            # span-attached stage histograms are emitted here, once, after
+            # the clock stops: an inline prometheus observe per stage
+            # boundary costs ~tens of µs that would show up as unattributed
+            # time *inside* the span (and as tracing overhead on the bench)
+            for name, _off, dur in list(span.stages):
+                m.emit_histogram(STAGE_METRIC, dur, stage=name)
+        with self._lock:
+            self._ring.append(span)
+            slow = self.slow_ms and span.duration * 1e3 >= self.slow_ms
+            if slow:
+                self._slow.append(span)
+        if slow:
+            stages = ", ".join(
+                f"{n}={d * 1e3:.1f}ms" for n, _o, d in list(span.stages)
+            )
+            logger.warning(
+                "slow request %s trace=%s %.1fms (%s)",
+                span.name, span.trace_id, span.duration * 1e3, stages or "no stages",
+            )
+
+    # --------------------------------------------------------------- stages
+    @contextlib.contextmanager
+    def stage(self, name: str, device: bool = False) -> Iterator[None]:
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self.record_stage(name, t0, time.monotonic(), device=device)
+
+    #: a stage whose start trails the previous stage's end by less than this
+    #: is glued to it — instrumentation/transition overhead between stages
+    #: is attributed to the next stage instead of vanishing (stage sums must
+    #: account for the observed end-to-end latency); genuine gaps larger
+    #: than this remain visible as missing time
+    GAP_GLUE_S = 0.0005
+
+    def record_stage(self, name: str, t0: float, t1: float,
+                     span: Span | None = None, device: bool = False) -> None:
+        """Record one ``[t0, t1]`` monotonic interval as stage ``name`` on
+        ``span`` (default: the ambient span), feed the stage histogram
+        (immediately when spanless; at span finish otherwise), and update
+        the stage EWMA. ``device=True`` marks a genuinely device-timed
+        interval: only those feed the dispatch-RTT EWMAs auto-depth divides
+        by. Callable from any thread."""
+        dur = max(0.0, t1 - t0)
+        sp = span if span is not None else _SPAN.get()
+        if sp is not None and self.enabled:
+            off = t0 - sp.t0
+            end = off + dur
+            if 0.0 < off - sp.hwm <= self.GAP_GLUE_S:
+                off = sp.hwm
+            sp.stages.append((name, off, end - off))
+            if end > sp.hwm:
+                sp.hwm = end
+        else:
+            m = self.metrics
+            if m is not None:
+                m.emit_histogram(STAGE_METRIC, dur, stage=name)
+        # EWMA update is a read-modify-write racing every worker thread
+        # (and reset()'s dict swap, which holds _lock): unguarded, two
+        # concurrent stages lose updates and a racing reset resurrects
+        # pre-reset values (kblint KB120)
+        with self._lock:
+            prev = self._ewma.get(name)
+            self._ewma[name] = (
+                dur if prev is None else prev + self._ewma_alpha * (dur - prev)
+            )
+            if device:
+                prev = self._rtt.get(name)
+                self._rtt[name] = (
+                    dur if prev is None
+                    else prev + self._ewma_alpha * (dur - prev)
+                )
+
+    # ---------------------------------------------------------------- ewmas
+    def ewma(self, stage: str) -> float | None:
+        with self._lock:
+            return self._ewma.get(stage)
+
+    def device_ewma(self, stage: str) -> float | None:
+        """EWMA over device-marked observations only (auto-depth inputs)."""
+        with self._lock:
+            return self._rtt.get(stage)
+
+    def dispatch_rtt(self) -> float | None:
+        """EWMA of the device dispatch round trip (dispatch + compute),
+        fed exclusively by device-marked stages; None until the device
+        engine has been observed (pure host deployments never set it)."""
+        with self._lock:
+            vals = [self._rtt[s] for s in self.RTT_STAGES if s in self._rtt]
+        return sum(vals) if vals else None
+
+    # ------------------------------------------------------------- snapshot
+    def snapshot(self, limit: int = 64) -> dict:
+        with self._lock:
+            traces = [s.to_dict() for s in list(self._ring)[-limit:]]
+            slow = [s.to_dict() for s in list(self._slow)]
+            ewma = dict(self._ewma)
+        rtt = self.dispatch_rtt()
+        return {
+            "enabled": self.enabled,
+            "slow_ms": self.slow_ms,
+            "traces": traces,
+            "slow": slow,
+            "stage_ewma_seconds": {k: round(v, 9) for k, v in ewma.items()},
+            "dispatch_rtt_seconds": round(rtt, 9) if rtt is not None else None,
+        }
+
+
+def emit_histogram(name: str, value: float, **tags: Any) -> None:
+    """Forward a histogram observation to the process metrics sink when one
+    is configured (used by layers without their own metrics handle, e.g.
+    the watch pumps)."""
+    m = TRACER.metrics
+    if m is not None:
+        m.emit_histogram(name, value, **tags)
+
+
+def traceparent_of(context: Any) -> str | bytes | None:
+    """The ``traceparent`` metadata value of a gRPC(-ish) server context,
+    if the transport exposes invocation metadata (grpcio does; the native
+    front / aio context adapters may not)."""
+    md = getattr(context, "invocation_metadata", None)
+    if not callable(md):
+        return None
+    try:
+        for item in md() or ():
+            key = getattr(item, "key", None)
+            if key is None and isinstance(item, tuple):
+                key, value = item
+            else:
+                value = getattr(item, "value", None)
+            if key == "traceparent":
+                return value
+    except Exception:
+        return None
+    return None
+
+
+#: the process-wide tracer; cli.build_endpoint configures it with the real
+#: metrics sink and --trace-slow-ms
+TRACER = Tracer()
