@@ -82,20 +82,29 @@ def u8_void(rows: np.ndarray) -> np.ndarray:
 def gather_arena(arena: np.ndarray, offsets: np.ndarray, perm: np.ndarray):
     """Reorder variable-length records of a byte arena by ``perm``.
 
-    Returns (new_arena uint8[∑len], new_offsets uint64[len(perm)+1]) —
-    fully vectorized (per-row source ranges expanded with repeat+arange).
-    """
+    Returns (new_arena uint8[∑len], new_offsets uint64[len(perm)+1]).
+    Rows that follow each other in ``perm`` and in the arena are one run,
+    copied as one slice, so no int64 index per byte (8x the arena) is built.
+    A merge's perm breaks at most twice per delta row and a compaction's
+    once per victim. A delta seal's perm may break at every row, but the
+    seal already builds those rows one by one in Python."""
     offsets = offsets.astype(np.int64)
+    perm = np.asarray(perm, dtype=np.int64)
     lens = (offsets[1:] - offsets[:-1])[perm]
     new_offsets = np.zeros(len(perm) + 1, dtype=np.int64)
     np.cumsum(lens, out=new_offsets[1:])
     total = int(new_offsets[-1])
     if total == 0:
         return np.zeros(0, dtype=np.uint8), new_offsets.astype(np.uint64)
-    starts = offsets[:-1][perm]
-    idx = np.arange(total, dtype=np.int64)
-    idx += np.repeat(starts - new_offsets[:-1], lens)
-    return arena[idx], new_offsets.astype(np.uint64)
+    run_lo = np.concatenate([[0], np.nonzero(np.diff(perm) != 1)[0] + 1])
+    run_hi = np.append(run_lo[1:], len(perm))
+    src_lo = offsets[perm[run_lo]].tolist()
+    src_hi = offsets[perm[run_hi - 1] + 1].tolist()
+    dst_lo = new_offsets[run_lo].tolist()
+    out = np.empty(total, dtype=np.uint8)
+    for s, e, d in zip(src_lo, src_hi, dst_lo):
+        out[d : d + e - s] = arena[s:e]
+    return out, new_offsets.astype(np.uint64)
 
 
 def pack_one(key: bytes, width: int = KEY_WIDTH) -> np.ndarray:

@@ -9,9 +9,12 @@ per-partition byte arenas.
 
 The device columns are held in the layout the visibility kernels read
 (``ops/scan.py``): keys int32[P, C, N] chunk-major and sign-flipped,
-revisions int64[P, N], tombstones int8[P, N]. It is built once per publish.
-Partition borders are user-key-aligned, so no version chain straddles two
-partitions and the kernels need no carry between them.
+revisions int64[P, N], tombstone and TTL-key flags int8[P, N]. A full build
+uploads every column; the incremental paths (the write-path delta merge and
+compaction) work on the host copies in the mirror's stored domain and
+re-upload only the partitions they changed. Partition borders are
+user-key-aligned, so no version chain straddles two partitions and the
+kernels need no carry between them.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ class Mirror:
     keys_dev: torch.Tensor     # int32[P, C, N] chunk-major, sign-flipped
     revs_dev: torch.Tensor     # int64[P, N]
     tomb_dev: torch.Tensor     # int8[P, N]
+    ttl_dev: torch.Tensor      # int8[P, N] row belongs to a TTL (/events/) key
     n_valid_dev: torch.Tensor  # int32[P]
     # host copies (row-aligned with the device arrays)
     keys_host: np.ndarray   # uint32[P, N, C]
@@ -50,6 +54,9 @@ class Mirror:
     max_rev: int
     key_width: int = 0              # RAW packed key width (bytes)
     encoding: KeyEncoding | None = None
+    # host TTL flag column (row-aligned with ttl_dev): the stored-domain
+    # merge and compaction carry it along instead of recomputing TTL flags
+    # from encoded keys
     ttl_host: np.ndarray | None = None  # bool[P, N]
 
     @property
@@ -125,27 +132,50 @@ def rows_to_arrays(rows: list[tuple[bytes, int, bytes]], width: int):
     return keys_u8, lens, revs, tomb, arena, offsets
 
 
-def merge_sorted_arrays(a, b):
-    """Merge two RAW row-array sextuples into one sorted by (key, revision):
-    one stable argsort over ``key || big-endian revision`` compared as
-    void scalars (memcmp order)."""
-    keys_u8 = np.concatenate([a[0], b[0]])
-    lens = np.concatenate([a[1], b[1]])
-    revs = np.concatenate([a[2], b[2]])
-    tomb = np.concatenate([a[3], b[3]])
+def _merge_sorted_blocks(blocks: list[tuple]) -> tuple:
+    """k-way merge of row-array tuples sorted by (key, revision).
+
+    Each block is ``(keys_u8[n, W], *columns, arena, offsets)``: any number
+    of row-aligned 1-D columns between the key matrix and the value arena,
+    the revisions second among them. One stable argsort over ``key ||
+    big-endian revision`` compared as void scalars (memcmp order). Shared by
+    :func:`merge_sorted_arrays` and :func:`merge_sorted_stored`, so the raw
+    and the stored merge cannot diverge."""
+    ncols = len(blocks[0]) - 3
+    keys_u8 = np.concatenate([b[0] for b in blocks])
+    cols = [np.concatenate([b[1 + c] for b in blocks]) for c in range(ncols)]
+    revs = cols[1]
     n, w = keys_u8.shape
     rev_be = revs[:, None].astype(">u8").view(np.uint8).reshape(n, 8)
     sort_rows = np.ascontiguousarray(np.concatenate([keys_u8, rev_be], axis=1))
     perm = np.argsort(sort_rows.view([("v", f"V{w + 8}")]).reshape(n),
                       kind="stable")
-    arena = np.concatenate([a[4], b[4]])
-    offsets = np.concatenate([
-        a[5].astype(np.int64)[:-1],
-        b[5].astype(np.int64)[:-1] + len(a[4]),
-        np.array([len(arena)], dtype=np.int64),
-    ]).astype(np.uint64)
+    arena = np.concatenate([b[-2] for b in blocks])
+    bases = np.cumsum([0] + [len(b[-2]) for b in blocks[:-1]]).astype(np.int64)
+    offsets = np.concatenate(
+        [b[-1].astype(np.int64)[:-1] + base for b, base in zip(blocks, bases)]
+        + [np.array([len(arena)], dtype=np.int64)]).astype(np.uint64)
     new_arena, new_offsets = keyops.gather_arena(arena, offsets, perm)
-    return keys_u8[perm], lens[perm], revs[perm], tomb[perm], new_arena, new_offsets
+    return (keys_u8[perm], *(c[perm] for c in cols), new_arena, new_offsets)
+
+
+def merge_sorted_arrays(a, b):
+    """Merge two RAW row-array sextuples ``(keys, lens, revs, tomb, arena,
+    offsets)`` into one sorted by (key, revision)."""
+    return _merge_sorted_blocks([a, b])
+
+
+def merge_sorted_stored(blocks: list[tuple]) -> tuple:
+    """Merge k sorted STORED-domain row blocks into one.
+
+    A stored block is a septuple ``(keys_u8[n, W], lens, revs, tomb, ttl,
+    arena, offsets)`` whose key bytes are in the mirror's compare domain:
+    raw packed bytes for a raw mirror, dictionary-encoded rows for an
+    encoded one. Encoded order equals raw byte order and the encoding is
+    injective, so one argsort merges encoded blocks as exactly as raw ones."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return _merge_sorted_blocks(blocks)
 
 
 def padded_capacity(count: int) -> int:
@@ -166,11 +196,36 @@ def compute_ttl_flags(keys_u8: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return (pref == ttl_pref).all(axis=1) & (lens >= len(ttl_pref))
 
 
-def _upload(keys_h, revs_h, tomb_h, n_valid, device):
-    """Host row-major columns → the device kernel layout."""
+def _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device):
+    """Host row-major columns → the device kernel layout: (keys, revs, tomb,
+    ttl, n_valid) tensors."""
     keys_t, revs, tomb8 = prepare_layout(keys_h, revs_h, tomb_h)
     put = lambda a: torch.from_numpy(a).to(device)
-    return put(keys_t), put(revs), put(tomb8), put(np.asarray(n_valid, np.int32))
+    return (put(keys_t), put(revs), put(tomb8),
+            put(np.asarray(ttl_h).astype(np.int8)),
+            put(np.asarray(n_valid, np.int32)))
+
+
+def _republish(old: Mirror, keys_h, revs_h, tomb_h, ttl_h, n_valid,
+               dirty) -> tuple:
+    """Device columns of a successor mirror (single-device counterpart of
+    ``_assemble_sharded``, ``kubebrain_tpu/storage/tpu/blocks.py:353``): a
+    copy-on-write clone of the old device tensors with only the ``dirty``
+    partitions re-uploaded; a full upload when the capacity changed.
+    Readers holding the old Mirror keep its tensors untouched."""
+    device = old.keys_dev.device
+    p, n, c = keys_h.shape
+    if tuple(old.keys_dev.shape) != (p, c, n):
+        return _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device)
+    cols = [old.keys_dev.clone(), old.revs_dev.clone(), old.tomb_dev.clone(),
+            old.ttl_dev.clone()]
+    for q in sorted(dirty):
+        host = (*prepare_layout(keys_h[q : q + 1], revs_h[q : q + 1],
+                                tomb_h[q : q + 1]),
+                np.asarray(ttl_h[q : q + 1]).astype(np.int8))
+        for col, part in zip(cols, host):
+            col[q : q + 1].copy_(torch.from_numpy(part))
+    return (*cols, torch.from_numpy(np.asarray(n_valid, np.int32)).to(device))
 
 
 def build_mirror_from_arrays(
@@ -244,9 +299,11 @@ def build_mirror_from_arrays(
         offs.append((off64[lo : hi + 1] - off64[lo]).astype(np.uint64))
     n_valid = np.array(counts, dtype=np.int32)
 
-    keys_d, revs_d, tomb_d, nv_d = _upload(keys_h, revs_h, tomb_h, n_valid, device)
+    keys_d, revs_d, tomb_d, ttl_d, nv_d = _upload(keys_h, revs_h, tomb_h, ttl_h,
+                                                  n_valid, device)
     return Mirror(
-        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, n_valid_dev=nv_d,
+        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
+        n_valid_dev=nv_d,
         keys_host=keys_h, lens_host=lens_h, revs_host=revs_h, tomb_host=tomb_h,
         n_valid=n_valid, val_arena=arenas, val_offsets=offs,
         snapshot_ts=snapshot_ts,
@@ -290,10 +347,13 @@ def mirror_from_reference(arrays, device) -> Mirror:
     revs_h = np.asarray(arrays["revs_host"], dtype=np.uint64)
     tomb_h = np.asarray(arrays["tomb_host"], dtype=bool)
     n_valid = np.asarray(arrays["n_valid"], dtype=np.int32)
-    keys_d, revs_d, tomb_d, nv_d = _upload(keys_h, revs_h, tomb_h, n_valid, device)
     ttl = arrays.get("ttl_host")
+    keys_d, revs_d, tomb_d, ttl_d, nv_d = _upload(
+        keys_h, revs_h, tomb_h, np.zeros(tomb_h.shape, bool) if ttl is None
+        else ttl, n_valid, device)
     return Mirror(
-        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, n_valid_dev=nv_d,
+        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
+        n_valid_dev=nv_d,
         keys_host=keys_h,
         lens_host=np.asarray(arrays["lens_host"], dtype=np.int32),
         revs_host=revs_h, tomb_host=tomb_h, n_valid=n_valid,
@@ -303,3 +363,156 @@ def mirror_from_reference(arrays, device) -> Mirror:
         key_width=int(arrays["key_width"]), encoding=encoding,
         ttl_host=None if ttl is None else np.asarray(ttl, dtype=bool),
     )
+
+
+def _host_columns(mirror: Mirror, cap: int):
+    """Copy-on-write host columns of ``mirror`` at row capacity ``cap``
+    (the valid rows of each partition; a larger ``cap`` pads with zeros)."""
+    if cap == mirror.keys_host.shape[1]:
+        return (mirror.keys_host.copy(), mirror.lens_host.copy(),
+                mirror.revs_host.copy(), mirror.tomb_host.copy(),
+                mirror.ttl_host.copy())
+    p, _n, c = mirror.keys_host.shape
+    cols = (np.zeros((p, cap, c), mirror.keys_host.dtype),
+            np.zeros((p, cap), mirror.lens_host.dtype),
+            np.zeros((p, cap), mirror.revs_host.dtype),
+            np.zeros((p, cap), mirror.tomb_host.dtype),
+            np.zeros((p, cap), mirror.ttl_host.dtype))
+    src = (mirror.keys_host, mirror.lens_host, mirror.revs_host,
+           mirror.tomb_host, mirror.ttl_host)
+    for q in range(p):
+        nv = int(mirror.n_valid[q])
+        for dst, col in zip(cols, src):
+            dst[q, :nv] = col[q, :nv]
+    return cols
+
+
+def _successor(mirror: Mirror, cols, n_valid, arenas, offs, dirty,
+               snapshot_ts: int, max_rev: int) -> Mirror:
+    keys_h, lens_h, revs_h, tomb_h, ttl_h = cols
+    keys_d, revs_d, tomb_d, ttl_d, nv_d = _republish(
+        mirror, keys_h, revs_h, tomb_h, ttl_h, n_valid, dirty)
+    return Mirror(
+        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
+        n_valid_dev=nv_d,
+        keys_host=keys_h, lens_host=lens_h, revs_host=revs_h, tomb_host=tomb_h,
+        n_valid=n_valid, val_arena=arenas, val_offsets=offs,
+        snapshot_ts=snapshot_ts, max_rev=max_rev,
+        key_width=mirror.key_width, encoding=mirror.encoding, ttl_host=ttl_h,
+    )
+
+
+def merge_partitions_stored(mirror: Mirror, delta: tuple,
+                            snapshot_ts: int) -> Mirror | None:
+    """Incremental merge of a sorted STORED-domain delta septuple (see
+    :func:`merge_sorted_stored`) into the mirror (counterpart of
+    ``kubebrain_tpu/storage/tpu/blocks.py:406``).
+
+    The delta rows were encoded against the published dictionary when they
+    were sealed, so each dirty partition merges by byte interleave alone: no
+    decode, no re-encode. Only dirty partitions re-upload. A partition that
+    outgrows the padded capacity grows every partition's host arrays to the
+    next capacity by memcpy (a full upload follows), never a re-sort or a
+    re-encode. Returns None only when there is nothing to route into (an
+    empty mirror), the mirror has no host TTL column, or the delta's stored
+    width differs from the mirror's: the caller rebuilds from the store."""
+    d_keys, d_lens, d_revs, d_tomb, d_ttl, d_arena, d_offsets = delta
+    if len(d_keys) == 0:
+        return mirror
+    if mirror.ttl_host is None:
+        return None
+    P, cap, C = mirror.keys_host.shape
+    if d_keys.shape[1] != C * 4:
+        return None
+    nonempty = [p for p in range(P) if mirror.n_valid[p] > 0]
+    if not nonempty:
+        return None
+
+    # route each delta row to the last non-empty partition whose first
+    # stored row is <= it (stored order == raw order); rows below the first
+    # partition's floor go to it. The delta is sorted, so each dirty
+    # partition owns one contiguous slice.
+    firsts = keyops.u8_void(np.ascontiguousarray(keyops.chunks_to_u8(
+        np.stack([mirror.keys_host[p, 0] for p in nonempty]))))
+    d_void = keyops.u8_void(np.ascontiguousarray(d_keys))
+    pos = np.maximum(np.searchsorted(firsts, d_void, side="right") - 1, 0)
+    row_part = np.asarray(nonempty, dtype=np.int64)[pos]
+    dirty = np.unique(row_part).tolist()
+    part_lo = np.searchsorted(row_part, np.asarray(dirty), side="left")
+    part_hi = np.searchsorted(row_part, np.asarray(dirty), side="right")
+
+    need = max(int(mirror.n_valid[p]) + int(hi - lo)
+               for p, lo, hi in zip(dirty, part_lo, part_hi))
+    if need > cap:
+        cap = padded_capacity(need)
+    cols = _host_columns(mirror, cap)
+    keys_h, lens_h, revs_h, tomb_h, ttl_h = cols
+    n_valid = mirror.n_valid.copy()
+    arenas = list(mirror.val_arena)
+    offs = list(mirror.val_offsets)
+    d_off64 = d_offsets.astype(np.int64)
+    for p, lo, hi in zip(dirty, part_lo, part_hi):
+        lo, hi = int(lo), int(hi)
+        nv = int(n_valid[p])
+        part = (
+            keyops.chunks_to_u8(mirror.keys_host[p, :nv]),
+            mirror.lens_host[p, :nv], mirror.revs_host[p, :nv],
+            mirror.tomb_host[p, :nv], mirror.ttl_host[p, :nv],
+            mirror.val_arena[p][: int(mirror.val_offsets[p][nv])],
+            mirror.val_offsets[p][: nv + 1],
+        )
+        dslice = (
+            d_keys[lo:hi], d_lens[lo:hi], d_revs[lo:hi], d_tomb[lo:hi],
+            d_ttl[lo:hi], d_arena[d_off64[lo] : d_off64[hi]],
+            (d_off64[lo : hi + 1] - d_off64[lo]).astype(np.uint64),
+        )
+        mk, ml, mr, mt, mttl, ma, mo = merge_sorted_stored([part, dslice])
+        mn = len(mk)
+        keys_h[p, :mn] = keyops.bytes_to_chunks(np.ascontiguousarray(mk))
+        lens_h[p, :mn] = ml
+        revs_h[p, :mn] = mr
+        tomb_h[p, :mn] = mt
+        ttl_h[p, :mn] = mttl
+        n_valid[p] = mn
+        arenas[p] = ma
+        offs[p] = mo
+    return _successor(mirror, cols, n_valid, arenas, offs, dirty, snapshot_ts,
+                      max(mirror.max_rev, int(d_revs.max())))
+
+
+def compact_partitions_stored(mirror: Mirror, keep_idx: dict[int, np.ndarray],
+                              snapshot_ts: int) -> Mirror | None:
+    """Shrink the mirror to the compaction survivors without leaving the
+    stored domain (counterpart of ``kubebrain_tpu/storage/tpu/blocks.py:556``).
+
+    ``keep_idx`` maps each DIRTY partition (one with a victim) to its
+    ascending surviving row indices. Survivors are gathered as stored rows
+    (key bytes, host TTL column, value arena), so the steady compaction path
+    decodes, re-encodes and re-dictionaries nothing; partition borders and
+    the published KeyEncoding carry over, and only dirty partitions
+    re-upload. Returns None for a mirror without a host TTL column (the
+    caller rebuilds). Shrinking never overflows the padded capacity."""
+    if not keep_idx:
+        return mirror
+    if mirror.ttl_host is None:
+        return None
+    cols = _host_columns(mirror, mirror.keys_host.shape[1])
+    n_valid = mirror.n_valid.copy()
+    arenas = list(mirror.val_arena)
+    offs = list(mirror.val_offsets)
+    src = (mirror.keys_host, mirror.lens_host, mirror.revs_host,
+           mirror.tomb_host, mirror.ttl_host)
+    for p, keep in keep_idx.items():
+        nv = int(n_valid[p])
+        keep = np.asarray(keep, dtype=np.int64)
+        mn = len(keep)
+        for dst, col in zip(cols, src):
+            dst[p, :mn] = col[p][keep]
+            # zero the vacated tail: rows past n_valid are masked by the
+            # kernels but must not reach a later capacity-grow memcpy
+            dst[p, mn:nv] = 0
+        n_valid[p] = mn
+        arenas[p], offs[p] = keyops.gather_arena(
+            mirror.val_arena[p], mirror.val_offsets[p][: nv + 1], keep)
+    return _successor(mirror, cols, n_valid, arenas, offs, set(keep_idx),
+                      snapshot_ts, mirror.max_rev)

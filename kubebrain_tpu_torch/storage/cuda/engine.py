@@ -1,6 +1,6 @@
 """The ``cuda`` storage engine: host-authoritative store + GPU scan mirror.
 
-Counterpart of the read half of ``kubebrain_tpu/storage/tpu/engine.py``:
+Counterpart of ``kubebrain_tpu/storage/tpu/engine.py``:
 
 - **writes / point reads / CAS**: delegated to a host engine (memkv);
 - **range scans / counts**: the device mirror (``blocks.Mirror``) and the
@@ -8,46 +8,83 @@ Counterpart of the read half of ``kubebrain_tpu/storage/tpu/engine.py``:
   per-partition mask→index compaction in PyTorch ops (J1) so the host pulls
   O(visible rows), never the mask;
 - **freshness**: committed version rows are appended to a host-side delta
-  index by the batch decorator; queries overlay it (every delta revision
-  exceeds every published revision, so overlay-wins resolution is exact).
-  A delta past ``merge_threshold`` or an uncertain commit sets
-  ``_force_rebuild``, and the next read rebuilds the mirror from the store
-  — exact, because the store is the only source of truth.
+  index by the batch decorator, which seals them into sorted stored-domain
+  blocks; queries overlay it (every delta revision exceeds every published
+  revision, so overlay-wins resolution is exact). A delta past
+  ``merge_threshold`` is merged into the dirty partitions in the stored
+  domain, off the engine lock, by a write-kicked background merge (or by
+  the read that crosses the threshold); a rebuild from the store is the
+  fallback for an overflowed dictionary, a width drift or an empty mirror;
+- **uncertain commits** quarantine the mirror: reads go to the host
+  ``Scanner`` over the store while a single-flight background rebuild runs;
+- **compaction**: the CUDA victim-mask kernel K3 (``ops/compact_kernels.py``)
+  marks, the host deletes the victims from the store (decoding victim rows
+  only), and the survivors are gathered in the stored domain with any
+  pending delta merged in (``blocks.compact_partitions_stored``).
 """
 
 from __future__ import annotations
 
 import bisect
 import os
+import random
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ... import coder
 from ...backend.common import TOMBSTONE, KeyValue
-from ...backend.scanner import CompactHistory, Scanner
+from ...backend import scanner as scanner_mod
+from ...backend.scanner import CompactHistory, CompactStats, Scanner
 from ...device import _host_pull, _pow2_bucket, resolve_device
+from ...ops import compact_kernels, scan_kernels
 from ...ops import keys as keyops
-from ...ops import scan_kernels
 from ...ops.scan import flip_sign
 from ...trace import TRACER
-from .. import BatchWrite, KvStorage, Partition, register_engine
+from .. import BatchWrite, CASFailedError, KvStorage, Partition, register_engine
 from ..errors import UncertainResultError
-from .blocks import Mirror, build_mirror
+from .blocks import (
+    Mirror,
+    build_mirror,
+    compact_partitions_stored,
+    compute_ttl_flags,
+    merge_partitions_stored,
+    merge_sorted_arrays,
+    merge_sorted_stored,
+    rows_to_arrays,
+)
+from .encode import EncodeOverflow
 
 
 class _DeltaIndex:
     """Commit-order delta rows plus a sorted key index, so read overlays
     cost O(log d + matches) instead of a full scan of the delta per query.
-    Writers append; per-key revision lists only grow."""
+    Writers append; per-key revision lists only grow.
 
-    __slots__ = ("_rows", "_keys", "_by_key")
+    The index also accumulates the rows into sealed, sorted STORED-domain
+    blocks (``seal_rows`` rows each, encoded against the published
+    dictionary when the mirror is encoded), so the incremental merge
+    (:func:`blocks.merge_partitions_stored`) interleaves ready-made sorted
+    runs instead of sorting and encoding the whole delta at merge time. A
+    key the dictionary cannot express marks the index ``overflowed``; the
+    merge then rebuilds from the store."""
 
-    def __init__(self):
+    __slots__ = ("_rows", "_keys", "_by_key", "_width", "_encoding",
+                 "_seal_rows", "_blocks", "_sealed_upto", "_overflow")
+
+    def __init__(self, width: int = keyops.KEY_WIDTH, encoding=None,
+                 seal_rows: int = 512):
         self._rows: list[tuple[bytes, int, bytes]] = []
         self._keys: list[bytes] = []  # sorted, unique
         self._by_key: dict[bytes, list[tuple[int, bytes]]] = {}
+        self._width = width
+        self._encoding = encoding
+        self._seal_rows = max(1, seal_rows)
+        self._blocks: list[tuple] = []  # sealed stored-domain septuples
+        self._sealed_upto = 0
+        self._overflow = False
 
     def extend(self, rows) -> None:
         for ukey, rev, value in rows:
@@ -58,6 +95,36 @@ class _DeltaIndex:
                 bisect.insort(self._keys, ukey)
             else:
                 lst.append((rev, value))
+        while len(self._rows) - self._sealed_upto >= self._seal_rows:
+            hi = self._sealed_upto + self._seal_rows
+            self._seal(self._rows[self._sealed_upto:hi])
+            self._sealed_upto = hi
+
+    def _seal(self, rows: list[tuple[bytes, int, bytes]]) -> None:
+        """Sort one run and move it into the mirror's stored domain."""
+        k, lens, r, t, arena, off = merge_sorted_arrays(
+            rows_to_arrays([], self._width), rows_to_arrays(rows, self._width))
+        ttl = compute_ttl_flags(k, lens)
+        if self._encoding is not None and not self._overflow:
+            try:
+                k, lens = self._encoding.encode_keys(k, lens)
+            except EncodeOverflow:
+                self._overflow = True  # the merge rebuilds from the store
+        self._blocks.append((k, np.asarray(lens, np.int32), r, t, ttl,
+                             arena, off))
+
+    def snapshot_blocks(self) -> tuple[list[tuple], list, bool]:
+        """Seal the open tail and return ``(sealed blocks, raw-row prefix,
+        overflowed)``, the merge's input. Rows appended after this call
+        stay in the index; :meth:`tail_rows` returns them."""
+        if self._sealed_upto < len(self._rows):
+            self._seal(self._rows[self._sealed_upto:])
+            self._sealed_upto = len(self._rows)
+        return list(self._blocks), self._rows[: self._sealed_upto], self._overflow
+
+    def tail_rows(self, n: int) -> list[tuple[bytes, int, bytes]]:
+        """Rows appended after a ``snapshot_blocks`` that covered ``n``."""
+        return self._rows[n:]
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -96,6 +163,27 @@ def _part_indices_of_mask(mask: torch.Tensor, size: int) -> torch.Tensor:
     rows = torch.arange(n, dtype=torch.int32, device=mask.device).expand_as(mask)
     out.scatter_(-1, slot, rows)
     return out[..., :size]
+
+
+def _victim_part_counts(mask: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """J3: per-partition victims and valid rows of a victim mask [P, N] as
+    one int32[2, P] device tensor (counterpart of ``_victim_part_counts``,
+    ``storage/tpu/engine.py:343``): 8·P bytes tell the host how large an
+    index block to pull and whether victims or survivors are fewer."""
+    return torch.stack([mask.sum(dim=1, dtype=torch.int32),
+                        n_valid.clamp(max=mask.shape[-1])])
+
+
+def _part_survivor_indices(mask: torch.Tensor, n_valid: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """J3: per-partition SURVIVOR row indices [P, size] (fill = N) of a
+    victim mask [P, N] (counterpart of ``_part_survivor_indices``,
+    ``storage/tpu/engine.py:354``). The victim side needs no such helper:
+    the kernel already gates validity, so ``_part_indices_of_mask`` serves
+    it directly."""
+    rows = torch.arange(mask.shape[-1], device=mask.device)
+    valid = rows.unsqueeze(0) < n_valid.to(torch.int64).unsqueeze(1)
+    return _part_indices_of_mask(valid & ~mask, size)
 
 
 def bound_rows(encoding, key_width: int, start: bytes, end: bytes):
@@ -165,36 +253,222 @@ class TorchScanner(Scanner):
         self._encode = _resolve_key_encoding(encode_keys)
         self._probe_cache: tuple[Mirror, list] | None = None
         self._mlock = threading.RLock()
+        # mergers (delta merge, compaction, offline rebuild) serialize on
+        # their own lock and do the heavy work off _mlock, so readers keep
+        # serving mirror + overlay. Lock order: _merge_lock before _mlock.
+        self._merge_lock = threading.Lock()
+        self._merge_kick = threading.Lock()    # single-flight background merge
+        self._rebuild_kick = threading.Lock()  # single-flight background rebuild
         self._mirror: Mirror | None = None
-        self._delta = _DeltaIndex()
+        self._delta = _DeltaIndex(self._kw)
         self._force_rebuild = True
-        #: mirror rebuilds from the store (first publish included)
+        #: synchronous mirror builds from the store: the first publish, a
+        #: merge that could not stay incremental, a merge escalation and the
+        #: compaction's full-rebuild rung
         self.full_rebuild_total = 0
+        self.merge_count = 0
+        self.merge_rows_total = 0
+        # background-merge failures: counted, last error kept. Written from
+        # background workers and the read path, hence the lock.
+        self._merr_lock = threading.Lock()
+        self.merge_bg_errors = 0
+        self._merge_bg_last_error: Exception | None = None
+        self.merge_retries_total = 0
+        self.merge_escalations_total = 0
+        self._merge_max_retries = 4
+        self.compact_count = 0
+        self.compact_victims_total = 0
+        self.compact_retries_total = 0
+        self.compact_escalations_total = 0
+        self.compact_errors = 0
+        self._compact_last_error: Exception | None = None
+        # True while a compaction holds _merge_lock for its whole pass:
+        # read-path threshold merges skip instead of parking on the lock
+        # (mirror + overlay stays exact). Guarded by _mlock.
+        self._compact_active = False
+        # mirror state machine: serving | quarantined | rebuilding. While not
+        # serving, reads go to the host Scanner over the authoritative store.
+        self._mirror_state = "serving"
+        self._poison_epoch = 0
+        self._degraded_since = 0.0
+        self.degraded_seconds_total = 0.0
+        self.rebuild_bg_count = 0
+
+    # ---------------------------------------------------------- degradation
+    def _enter_degraded_locked(self, state: str) -> None:
+        """Under ``_mlock``: into quarantined/rebuilding; the degraded clock
+        starts on the first transition out of serving."""
+        if self._mirror_state == "serving":
+            self._degraded_since = time.monotonic()
+        self._mirror_state = state
+
+    def _exit_degraded_locked(self) -> None:
+        """Under ``_mlock``: back to serving, the degraded window counted."""
+        if self._mirror_state != "serving":
+            self.degraded_seconds_total += time.monotonic() - self._degraded_since
+        self._mirror_state = "serving"
+
+    def _degraded(self) -> bool:
+        """True while the mirror is quarantined or rebuilding: the query
+        paths then serve from the host store, and the background rebuild is
+        kicked again in case an earlier attempt gave up."""
+        with self._mlock:
+            degraded = self._mirror_state != "serving"
+        if degraded:
+            self._kick_rebuild()
+        return degraded
+
+    def _kick_rebuild(self) -> None:
+        """Single-flight background rebuild from the store, with bounded
+        jittered-backoff retries: recovery never runs on a reader's thread."""
+        if not self._rebuild_kick.acquire(blocking=False):
+            return
+
+        def run() -> None:
+            try:
+                backoff = 0.05
+                for _attempt in range(16):
+                    try:
+                        if self._rebuild_offline():
+                            return
+                    except Exception:
+                        with self._merr_lock:
+                            self.merge_bg_errors += 1
+                    time.sleep(backoff * random.uniform(0.5, 1.5))
+                    backoff = min(backoff * 2.0, 1.0)
+                # gave up: stay quarantined; the next degraded read re-kicks
+            finally:
+                self._rebuild_kick.release()
+
+        try:
+            threading.Thread(target=run, name="kb-mirror-rebuild",
+                             daemon=True).start()
+        except BaseException:
+            self._rebuild_kick.release()
+            raise
+
+    def _rebuild_offline(self) -> bool:
+        """One rebuild attempt off the engine lock: build a fresh mirror
+        from the store, then swap under ``_mlock``. Returns False when a
+        newer poisoning superseded it (the caller retries)."""
+        with self._merge_lock:
+            with self._mlock:
+                if not self._force_rebuild and self._mirror is not None:
+                    self._exit_degraded_locked()
+                    return True  # something else already recovered
+                epoch = self._poison_epoch
+                delta0 = self._delta
+                n0 = len(delta0)
+                self._enter_degraded_locked("rebuilding")
+            m = self._build_mirror_from_store()
+            with self._mlock:
+                if self._poison_epoch != epoch or self._delta is not delta0:
+                    # poisoned again, or a foreground rebuild swapped state
+                    # meanwhile: never overwrite fresher state
+                    return not self._force_rebuild and self._mirror is not None
+                self._mirror = m
+                tail = self._delta.tail_rows(n0)
+                self._force_rebuild = False
+                self._delta = self._fresh_delta()
+                if tail:
+                    self._delta.extend(tail)
+                self._probe_cache = None
+                self.rebuild_bg_count += 1
+                self._exit_degraded_locked()
+        return True
 
     # ------------------------------------------------------------ write feed
     def record_version_rows(self, rows: list[tuple[bytes, int, bytes]]) -> None:
         with self._mlock:
             self._delta.extend(rows)
-            if (self._mirror is not None
-                    and len(self._delta) >= self._merge_threshold):
-                self._force_rebuild = True
+            kick = (self._mirror is not None and not self._force_rebuild
+                    and len(self._delta) >= self._merge_threshold)
+        if kick:
+            self._kick_merge()
+
+    def _kick_merge(self) -> None:
+        """Single-flight background incremental merge, started by the write
+        that crosses the threshold; a kick while one runs is dropped (the
+        next crossing re-kicks, ``publish()`` sweeps any tail). A failing
+        merge retries with jittered backoff, then escalates to one rebuild
+        from the store, quarantining meanwhile; readers keep serving
+        mirror + overlay, which stays exact, until then."""
+        if not self._merge_kick.acquire(blocking=False):
+            return
+
+        def run() -> None:
+            try:
+                backoff = 0.05
+                for attempt in range(self._merge_max_retries):
+                    try:
+                        self._merge_delta()
+                        return
+                    except Exception as e:
+                        with self._merr_lock:
+                            self.merge_bg_errors += 1
+                            self._merge_bg_last_error = e
+                        if attempt + 1 >= self._merge_max_retries:
+                            break
+                        self.merge_retries_total += 1
+                        time.sleep(backoff * random.uniform(0.5, 1.5))
+                        backoff = min(backoff * 2.0, 1.0)
+                self.merge_escalations_total += 1
+                try:
+                    with self._mlock:
+                        self._force_rebuild = True
+                        self._poison_epoch += 1
+                        self._enter_degraded_locked("quarantined")
+                        if self._mirror is not None:
+                            self.full_rebuild_total += 1
+                    self._rebuild_offline()
+                except Exception as e:  # keep the failure visible
+                    with self._merr_lock:
+                        self._merge_bg_last_error = e
+            finally:
+                self._merge_kick.release()
+
+        try:
+            threading.Thread(target=run, name="kb-mirror-merge",
+                             daemon=True).start()
+        except BaseException:
+            self._merge_kick.release()
+            raise
 
     def mark_uncertain(self) -> None:
         """A commit with unknowable outcome may or may not have produced
-        rows; only the store knows, so the next read rebuilds from it."""
+        rows; only the store knows. The mirror quarantines: reads go to the
+        host store while a single-flight background rebuild runs."""
         with self._mlock:
             self._force_rebuild = True
+            self._poison_epoch += 1
+            self._enter_degraded_locked("quarantined")
+        self._kick_rebuild()
 
     # -------------------------------------------------------------- publish
-    def _ensure_published(self) -> None:
+    def _ensure_published(self, full: bool = False) -> None:
         with self._mlock:
             if self._force_rebuild or self._mirror is None:
                 self._rebuild_from_store()
+                return
+            want_merge = len(self._delta) and (
+                full or len(self._delta) >= self._merge_threshold)
+            if not want_merge or (not full and self._compact_active):
+                return
+        if full:
+            self._merge_delta()
+            return
+        try:
+            self._merge_delta()
+        except Exception as e:
+            # a failed read-path merge must not fail the read: mirror +
+            # overlay is still exact, only larger
+            with self._merr_lock:
+                self.merge_bg_errors += 1
+                self._merge_bg_last_error = e
 
-    def _rebuild_from_store(self) -> None:
-        """Synchronous rebuild from the authoritative store; the caller
-        holds ``_mlock``, so delta recording waits and no row is lost: a
-        write the snapshot missed lands in the fresh delta."""
+    def _build_mirror_from_store(self) -> Mirror:
+        """A fresh Mirror from the authoritative store. Pure read: no
+        scanner state changes."""
         snapshot = self._store.get_timestamp_oracle()
         lo, hi = coder.internal_range(b"", b"")
         rows: list[tuple[bytes, int, bytes]] = []
@@ -202,20 +476,69 @@ class TorchScanner(Scanner):
             ukey, rev = coder.decode(ikey)
             if rev != 0:
                 rows.append((ukey, rev, value))
-        self._mirror = build_mirror(rows, self._device, self._kw, snapshot,
-                                    n_parts=self._partitions,
-                                    encode=self._encode)
-        self._delta = _DeltaIndex()
+        return build_mirror(rows, self._device, self._kw, snapshot,
+                            n_parts=self._partitions, encode=self._encode)
+
+    def _rebuild_from_store(self) -> None:
+        """Synchronous rebuild; the caller holds ``_mlock``, so delta
+        recording waits and no row is lost: a write the snapshot missed
+        lands in the fresh delta."""
+        self._mirror = self._build_mirror_from_store()
+        self._delta = self._fresh_delta()
         self._force_rebuild = False
         self._probe_cache = None
         self.full_rebuild_total += 1
+        self._exit_degraded_locked()
+
+    def _fresh_delta(self) -> _DeltaIndex:
+        """A delta index bound to the current mirror's stored domain, so
+        write-time sealing encodes against the published dictionary."""
+        enc = self._mirror.encoding if self._mirror is not None else None
+        seal = max(64, min(512, self._merge_threshold // 4 or 64))
+        return _DeltaIndex(self._kw, encoding=enc, seal_rows=seal)
+
+    def _merge_delta(self) -> None:
+        """Incremental delta merge, off the engine lock (counterpart of
+        ``storage/tpu/engine.py:1010``). The sealed stored-domain blocks are
+        k-way interleaved (:func:`merge_sorted_stored`) and land in the
+        dirty partitions only (:func:`merge_partitions_stored`); readers
+        keep serving mirror + overlay, and the swap under ``_mlock`` keeps
+        every row appended after the snapshot in the successor overlay. An
+        overflowed delta, a width drift or an empty mirror rebuilds from
+        the store instead, counted in ``full_rebuild_total``."""
+        with self._merge_lock:
+            with self._mlock:
+                if self._force_rebuild or self._mirror is None:
+                    self._rebuild_from_store()
+                    return
+                mirror = self._mirror
+                blocks, rows_prefix, overflow = self._delta.snapshot_blocks()
+            n_rows = len(rows_prefix)
+            if n_rows == 0:
+                return
+            ts = self._store.get_timestamp_oracle()
+            m = None
+            if not overflow:
+                m = merge_partitions_stored(mirror, merge_sorted_stored(blocks),
+                                            ts)
+            with self._mlock:
+                if self._mirror is not mirror:
+                    return  # superseded by a fresher mirror from the store
+                self.merge_count += 1
+                if m is None:
+                    self._rebuild_from_store()
+                    return
+                self._mirror = m
+                tail = self._delta.tail_rows(n_rows)
+                self._delta = self._fresh_delta()
+                if tail:
+                    self._delta.extend(tail)
+                self._probe_cache = None
+                self.merge_rows_total += n_rows
 
     def publish(self) -> None:
         """Force the mirror fully up to date (startup hook)."""
-        with self._mlock:
-            if self._delta:
-                self._force_rebuild = True
-        self._ensure_published()
+        self._ensure_published(full=True)
 
     # -------------------------------------------------------------- queries
     def _dev_mask(self, mirror: Mirror, start: bytes, end: bytes, read_rev: int):
@@ -289,6 +612,8 @@ class TorchScanner(Scanner):
     def range_(self, start: bytes, end: bytes, read_revision: int, limit: int = 0):
         if limit and limit <= self._host_limit_threshold:
             return super().range_(start, end, read_revision, limit)
+        if self._degraded():
+            return Scanner.range_(self, start, end, read_revision, limit)
         mirror, overlay = self._published_view(start, end, read_revision)
         with TRACER.stage("device_dispatch", device=True):
             mask, counts = self._dev_mask(mirror, start, end, read_revision)
@@ -311,6 +636,17 @@ class TorchScanner(Scanner):
         packing, index extraction and host materialization reuse the
         single-query code."""
         out: list = [None] * len(queries)
+        if self._degraded():
+            for i, spec in enumerate(queries):
+                try:
+                    if spec[0] == "count":
+                        out[i] = Scanner.count(self, spec[1], spec[2], spec[3])
+                    else:
+                        out[i] = Scanner.range_(self, spec[1], spec[2],
+                                                spec[3], spec[4])
+                except Exception as e:
+                    out[i] = e
+            return out
         device: list[tuple[int, tuple]] = []
         for i, spec in enumerate(queries):
             kind, start, end, read_rev = spec[0], spec[1], spec[2], spec[3]
@@ -388,6 +724,9 @@ class TorchScanner(Scanner):
         """Device-indexed streaming list: bounded batches materialized on
         demand from the index list, with the delta overlay merged in key
         order — unbounded ranges never materialize in full on the host."""
+        if self._degraded():
+            return Scanner.range_stream(self, start, end, read_revision,
+                                        batch_size)
         mirror, overlay = self._published_view(start, end, read_revision)
         mask, counts = self._dev_mask(mirror, start, end, read_revision)
         n_rows = mirror.keys_host.shape[1]
@@ -438,6 +777,8 @@ class TorchScanner(Scanner):
         return generate()
 
     def count(self, start: bytes, end: bytes, read_revision: int) -> int:
+        if self._degraded():
+            return Scanner.count(self, start, end, read_revision)
         mirror, overlay = self._published_view(start, end, read_revision)
         with TRACER.stage("device_dispatch", device=True):
             _, counts = self._dev_mask(mirror, start, end, read_revision)
@@ -537,6 +878,310 @@ class TorchScanner(Scanner):
             if fk and fk <= ukey:
                 p = i
         return p
+
+
+    # -------------------------------------------------------------- compact
+    def _victim_args(self, mirror: Mirror, start: bytes, end: bytes,
+                     compact_rev: int, ttl_cutoff: int) -> tuple:
+        """K3's argument list for internal-key borders [start, end) over
+        ``mirror``: its device columns and the flipped bound rows."""
+        s_user = coder.decode(start)[0] if coder.is_internal_key(start) else b""
+        e_user = coder.decode(end)[0] if coder.is_internal_key(end) else b""
+        s_row, e_row, unbounded = bound_rows(mirror.encoding, self._kw,
+                                             s_user, e_user)
+        put = lambda r: torch.from_numpy(flip_sign(r)).to(self._device)
+        return (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
+                mirror.ttl_dev, mirror.n_valid_dev, put(s_row), put(e_row),
+                unbounded, compact_rev, ttl_cutoff)
+
+    def _victim_mask(self, mirror: Mirror, start: bytes, end: bytes,
+                     compact_rev: int, ttl_cutoff: int) -> torch.Tensor:
+        """The victim mask [P, N] through K3, the one place compaction
+        launches it."""
+        return compact_kernels.victim_mask_batch(*self._victim_args(
+            mirror, start, end, compact_rev, ttl_cutoff))
+
+    def _pull_victim_indices(self, mask: torch.Tensor,
+                             mirror: Mirror) -> dict[int, np.ndarray]:
+        """``{partition: ascending victim row indices}`` for every partition
+        with a victim, through the two-phase transfer of
+        ``storage/tpu/engine.py:1622``: the per-partition counts first
+        (8·P bytes), then only the smaller of the victim and survivor index
+        sets as a [P, pow2(max count)] block, the complement rebuilt on the
+        host. The [P, N] mask itself crosses only when that block would be
+        wider than it."""
+        n_rows = int(mask.shape[-1])
+        vic_h, valid_h = _host_pull(_victim_part_counts(mask, mirror.n_valid_dev))
+        total_vic = int(vic_h.sum())
+        if total_vic == 0:
+            return {}
+        surv_h = valid_h - vic_h
+        use_survivors = int(surv_h.sum()) < total_vic
+        want = int(surv_h.max()) if use_survivors else int(vic_h.max())
+        size = _pow2_bucket(want, n_rows)
+        out: dict[int, np.ndarray] = {}
+        if size * 8 > n_rows:
+            mask_h = _host_pull(mask)
+            for p in np.nonzero(vic_h)[0]:
+                p = int(p)
+                out[p] = np.nonzero(mask_h[p, : int(valid_h[p])])[0]
+            return out
+        if use_survivors:
+            idx = _host_pull(_part_survivor_indices(mask, mirror.n_valid_dev, size))
+            for p in np.nonzero(vic_h)[0]:
+                p = int(p)
+                pmask = np.ones(int(valid_h[p]), dtype=bool)
+                pmask[idx[p, : int(surv_h[p])].astype(np.int64)] = False
+                out[p] = np.nonzero(pmask)[0]
+        else:
+            idx = _host_pull(_part_indices_of_mask(mask, size))
+            for p in np.nonzero(vic_h)[0]:
+                p = int(p)
+                out[p] = idx[p, : int(vic_h[p])].astype(np.int64)
+        return out
+
+    def _compact_victim_rows(self, mirror: Mirror, p: int, rows: np.ndarray):
+        """The victim-only decode point: raw key bytes for exactly the rows
+        compaction deletes from the store (the engine speaks raw keys), never
+        a whole partition."""
+        k_u8, lens = mirror.decoded_keys(p, rows)
+        return k_u8, np.asarray(lens, np.int32)
+
+    def compact(self, start: bytes, end: bytes, compact_revision: int) -> CompactStats:
+        """Device compaction (counterpart of ``storage/tpu/engine.py:1687``):
+        mark (K3 + the victim index pull) → gc (store deletes of the victim
+        rows, guarded revision-record GC, history pruning) → merge
+        (survivors gathered in the stored domain, pending delta merged) →
+        publish (swap under ``_mlock``). The store's deletes go through the
+        untracked inner engine, so they neither feed the delta nor poison
+        the mirror. The whole pass holds ``_merge_lock``; readers keep
+        serving mirror + overlay. A failed mirror half retries with backoff,
+        then escalates to quarantine and a rebuild from the GC'd store.
+        ``pre_merge`` times the merge of the pending delta before marking."""
+        t0 = time.monotonic()
+        self._ensure_published(full=True)
+        phases: dict[str, float] = {"pre_merge": time.monotonic() - t0}
+        store = getattr(self._store, "untracked", self._store.exclusive_client)()
+        self.compact_history.log(compact_revision)
+        ttl_cutoff = 0
+        if not store.support_ttl():
+            ttl_cutoff = self.compact_history.timeout_revision(
+                scanner_mod.EVENTS_TTL_SECONDS)
+        applied = superseded = False
+        with self._merge_lock:
+            with self._mlock:
+                mirror = self._mirror
+                self._compact_active = True
+            try:
+                t0 = time.monotonic()
+                victims_by_part = self._pull_victim_indices(
+                    self._victim_mask(mirror, start, end, compact_revision,
+                                      ttl_cutoff), mirror)
+                phases["mark"] = time.monotonic() - t0
+
+                t0 = time.monotonic()
+                stats = CompactStats(scanned=mirror.rows, mirror_path="none",
+                                     phase_seconds=phases)
+                keep_idx = self._compact_gc(store, mirror, victims_by_part, stats)
+                phases["gc"] = time.monotonic() - t0
+                n_victims = sum(len(v) for v in victims_by_part.values())
+                stats.survivor_rows = mirror.rows - n_victims
+                stats.dirty_partitions = len(keep_idx)
+                try:
+                    superseded = self._compact_apply_locked(
+                        mirror, keep_idx, stats, phases)
+                    applied = True
+                except Exception as e:
+                    self.compact_errors += 1
+                    self._compact_last_error = e
+            finally:
+                with self._mlock:
+                    self._compact_active = False
+        if superseded:
+            self._quarantine_superseded_compact(stats)
+        elif not applied:
+            self._compact_retry_escalate(mirror, keep_idx, stats, phases)
+        self.compact_count += 1
+        self.compact_victims_total += n_victims
+        return stats
+
+    def _compact_gc(self, store, mirror: Mirror, victims_by_part,
+                    stats: CompactStats) -> dict[int, np.ndarray]:
+        """Delete the victims from the store and count them into ``stats``;
+        returns ``{dirty partition: surviving row indices}``. Victim classes
+        and revision-record GC follow the host scanner's rules
+        (``backend/scanner.py``); group structure is read off the stored key
+        rows (encoded equality is raw equality), so only victims decode."""
+        retry_min = self._retry_min_revision()
+        bulk = getattr(store, "bulk_gc", None)
+        pending: list[bytes] = []
+        bulk_victims, bulk_recs = [], []
+        keep_idx: dict[int, np.ndarray] = {}
+        for p in sorted(victims_by_part):
+            victims = victims_by_part[p]
+            nv = int(mirror.n_valid[p])
+            pmask = np.zeros(nv, dtype=bool)
+            pmask[victims] = True
+            keys_p = mirror.keys_host[p, :nv]
+            revs_all = mirror.revs_host[p, :nv]
+            tomb_all = mirror.tomb_host[p, :nv]
+            same_prev = np.zeros(nv, dtype=bool)
+            same_prev[1:] = (keys_p[1:] == keys_p[:-1]).all(axis=1)
+            group_starts = np.nonzero(~same_prev)[0]
+            group_ends = np.append(group_starts[1:], nv)
+            doomed_per_group = np.add.reduceat(pmask.astype(np.int64), group_starts)
+            last_idx = group_ends - 1
+            gid = np.cumsum(~same_prev) - 1
+
+            v_tomb = tomb_all[victims].astype(bool)
+            v_is_last = victims == last_idx[gid[victims]]
+            stats.deleted_tombstones += int(v_tomb.sum())
+            stats.deleted_versions += int((~v_tomb & ~v_is_last).sum())
+            stats.expired_ttl += int((~v_tomb & v_is_last).sum())
+
+            # revision-record GC: fully doomed groups whose last revision is
+            # below the uncertain-retry fence
+            dg = np.nonzero(doomed_per_group == group_ends - group_starts)[0]
+            d_last = last_idx[dg]
+            d_rev = revs_all[d_last].astype(np.uint64)
+            if retry_min and len(dg):
+                ok = d_rev < np.uint64(retry_min)
+                dg, d_last, d_rev = dg[ok], d_last[ok], d_rev[ok]
+            # a fully doomed group's first row is itself a victim, so the
+            # victims' decode covers the revision-record keys too
+            k_u8_v, lens_v = self._compact_victim_rows(mirror, p, victims)
+            f_pos = np.searchsorted(victims, group_starts[dg])
+            if bulk is not None:
+                bulk_victims.append((k_u8_v, lens_v,
+                                     revs_all[victims].astype(np.uint64)))
+                bulk_recs.append((k_u8_v[f_pos], lens_v[f_pos], d_rev,
+                                  tomb_all[d_last].astype(np.uint8)))
+            else:
+                for j, i in enumerate(victims):
+                    uk = k_u8_v[j, : int(lens_v[j])].tobytes()
+                    pending.append(coder.encode_object_key(uk, int(revs_all[int(i)])))
+                for j in range(len(dg)):
+                    raw = coder.encode_rev_value(
+                        int(d_rev[j]), deleted=bool(tomb_all[int(d_last[j])]))
+                    fj = int(f_pos[j])
+                    uk = k_u8_v[fj, : int(lens_v[fj])].tobytes()
+                    try:
+                        store.del_current(coder.encode_revision_key(uk), raw)
+                        stats.deleted_rev_records += 1
+                    except CASFailedError:
+                        pass  # rewritten since the mirror snapshot
+            keep_idx[p] = np.nonzero(~pmask)[0]
+        if bulk is not None and bulk_victims:
+            vk, vl, vr = (np.concatenate([b[i] for b in bulk_victims])
+                          for i in range(3))
+            rk, rl, rr, rt = (np.concatenate([b[i] for b in bulk_recs])
+                              for i in range(4))
+            stats.deleted_rev_records += bulk(vk, vl, vr, rk, rl, rr, rt)
+        for b0 in range(0, len(pending), 256):
+            batch = store.begin_batch_write()
+            for k in pending[b0 : b0 + 256]:
+                batch.delete(k)
+            batch.commit()
+        # free the version chains the logical deletes above made unreachable
+        pruner = getattr(store, "prune_versions", None)
+        if pruner is not None:
+            pruner(store.get_timestamp_oracle())
+        return keep_idx
+
+    def _compact_apply_locked(self, mirror: Mirror, keep_idx, stats,
+                              phases) -> bool:
+        """One attempt at the compaction's mirror half; the caller holds
+        ``_merge_lock``, ``_mlock`` is taken for the delta snapshot and the
+        swap only. Survivors are gathered in the stored domain and the
+        delta sealed before the snapshot is merged in. Returns True when the
+        mirror was superseded (an uncertainty rebuild swapped it)."""
+        t0 = time.monotonic()
+        with self._mlock:
+            if self._force_rebuild or self._mirror is not mirror:
+                return True
+            blocks, rows_prefix, overflow = self._delta.snapshot_blocks()
+        n_rows = len(rows_prefix)
+        ts = self._store.get_timestamp_oracle()
+        m = None
+        if not (n_rows and overflow):
+            m = compact_partitions_stored(mirror, keep_idx, ts)
+        if m is not None and n_rows:
+            m = merge_partitions_stored(m, merge_sorted_stored(blocks), ts)
+        full = m is None
+        if full:
+            # width drift, an overflowed dictionary or no host TTL column:
+            # the store, already GC'd, holds exactly the rows wanted
+            m = self._build_mirror_from_store()
+        phases["merge"] = time.monotonic() - t0
+        t1 = time.monotonic()
+        superseded = False
+        with self._mlock:
+            if self._force_rebuild or self._mirror is not mirror:
+                superseded = True
+            elif m is mirror and n_rows == 0:
+                stats.mirror_path = "stored_incremental"  # nothing changed
+            else:
+                self._mirror = m
+                tail = self._delta.tail_rows(n_rows)
+                self._delta = self._fresh_delta()
+                if tail:
+                    self._delta.extend(tail)
+                self._probe_cache = None
+                if full:
+                    self.full_rebuild_total += 1
+                stats.mirror_path = "full_rebuild" if full else "stored_incremental"
+        phases["publish"] = time.monotonic() - t1
+        return superseded
+
+    def _compact_apply(self, mirror: Mirror, keep_idx, stats, phases) -> None:
+        """A retry of the mirror half, re-taking ``_merge_lock``."""
+        with self._merge_lock:
+            with self._mlock:
+                self._compact_active = True
+            try:
+                superseded = self._compact_apply_locked(
+                    mirror, keep_idx, stats, phases)
+            finally:
+                with self._mlock:
+                    self._compact_active = False
+        if superseded:
+            self._quarantine_superseded_compact(stats)
+
+    def _compact_retry_escalate(self, mirror: Mirror, keep_idx, stats,
+                                phases) -> None:
+        """Attempts 2..K of the mirror half with jittered backoff (sleeps
+        hold no lock), then escalate: quarantine, and one background rebuild
+        from the already-GC'd store recovers. The store's deletes stand
+        either way."""
+        backoff = 0.05
+        for _attempt in range(1, self._merge_max_retries):
+            self.compact_retries_total += 1
+            time.sleep(backoff * random.uniform(0.5, 1.5))
+            backoff = min(backoff * 2.0, 1.0)
+            try:
+                self._compact_apply(mirror, keep_idx, stats, phases)
+                return
+            except Exception as e:
+                self.compact_errors += 1
+                self._compact_last_error = e
+        self.compact_escalations_total += 1
+        stats.mirror_path = "escalated"
+        with self._mlock:
+            self._force_rebuild = True
+            self._poison_epoch += 1
+            self._enter_degraded_locked("quarantined")
+        self._kick_rebuild()
+
+    def _quarantine_superseded_compact(self, stats) -> None:
+        """A mirror swapped mid-pass may have been built from a store
+        snapshot older than this compaction's deletes: quarantine, and one
+        background rebuild converges."""
+        stats.mirror_path = "superseded"
+        with self._mlock:
+            self._force_rebuild = True
+            self._poison_epoch += 1
+            self._enter_degraded_locked("quarantined")
+        self._kick_rebuild()
 
 
 class CudaKvStorage(KvStorage):

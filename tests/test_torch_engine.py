@@ -2,9 +2,10 @@
 package's ``tpu`` engine and its ``memkv`` engine, fed the same seeded
 operation sequence: Range, Count, ``list_batch`` and ``range_stream`` must
 be byte-identical at head and at snapshot revisions, with a live delta
-overlay, after a threshold rebuild, with key encoding on and off."""
+overlay, after threshold merges, with key encoding on and off."""
 
 import random
+import time
 
 import numpy as np
 import pytest
@@ -147,6 +148,9 @@ def test_live_delta_overlay_matches_reference(encode):
 
 @pytest.mark.parametrize("encode,partitions", [(True, 0), (False, 3)])
 def test_threshold_rebuild_matches_reference(encode, partitions):
+    """A delta past the threshold merges into the mirror in the stored
+    domain (write-kicked or on the next read), with no rebuild from the
+    store, and every read still matches the references."""
     trio = Trio(encode, merge_threshold=8, partitions=partitions)
     try:
         rng = random.Random(5)
@@ -154,15 +158,22 @@ def test_threshold_rebuild_matches_reference(encode, partitions):
         trio.assert_reads_agree()
         before = trio.port.scanner.full_rebuild_total
         trio.drive(rng, 40)                  # well past the threshold
-        assert trio.port.scanner._force_rebuild
         trio.assert_reads_agree()
-        assert trio.port.scanner.full_rebuild_total == before + 1
-        assert trio.port.scanner._mirror.partitions == (partitions or 1)
+        sc = trio.port.scanner
+        sc.publish()
+        assert sc.merge_count > 0 and sc.merge_rows_total > 0
+        assert not sc._force_rebuild
+        assert sc.full_rebuild_total == before
+        assert sc._mirror.partitions == (partitions or 1)
+        trio.assert_reads_agree()
     finally:
         trio.close()
 
 
 def test_uncertain_commit_forces_rebuild():
+    """An uncertain commit quarantines the mirror: reads go to the host
+    store at once, and a background rebuild from the store brings the
+    mirror back to serving."""
     store = t_new_storage("cuda", inner="memkv", device="cpu")
     b = TBackend(store, TConfig(event_ring_capacity=1024))
     try:
@@ -170,9 +181,16 @@ def test_uncertain_commit_forces_rebuild():
         r = b.create(b"/registry/a", b"1")
         assert rows(b.list_(b"/registry/", b"").kvs) == [(b"/registry/a", b"1", r)]
         store._on_uncertain()
-        assert b.scanner._force_rebuild
+        assert b.scanner._mirror_state != "serving" or b.scanner.rebuild_bg_count
         assert [kv.key for kv in b.list_(b"/registry/", b"").kvs] == [b"/registry/a"]
-        assert b.scanner.full_rebuild_total == 2
+        deadline = time.time() + 10
+        while time.time() < deadline and (b.scanner._mirror_state != "serving"
+                                          or not b.scanner.rebuild_bg_count):
+            time.sleep(0.01)
+        assert b.scanner._mirror_state == "serving"
+        assert b.scanner.rebuild_bg_count == 1
+        assert b.scanner.full_rebuild_total == 1  # the first publish only
+        assert [kv.key for kv in b.list_(b"/registry/", b"").kvs] == [b"/registry/a"]
     finally:
         b.close()
         store.close()
