@@ -15,7 +15,12 @@ result line):
     128-byte keys and the same rows encoded. K1 (one ``/registry/pods/``
     query at a mid-history revision) and K2 (8 distinct prefix/revision
     queries) must give masks and counts bit-identical to the plain PyTorch
-    version; kernel, plain and bound times are printed.
+    version; kernel, plain and bound times are printed. Then the edge
+    queries of the kernels' block classification (bounds on the rows of
+    block edges, start == end, a start past every key, an end below every
+    key, a NUL-bound single key, an unbounded end), each through K1 and all
+    of them through one K2 launch padded to a power of two, must be
+    bit-identical too.
 (d) K3 at the scan bench shape: the same rows, raw and encoded, with the
     TTL flag on every third key's whole chain, compacted at a mid-history
     revision with a TTL cutoff below it, once unbounded and once over
@@ -33,7 +38,8 @@ result line):
     overlay. Every response must equal the generic host ``Scanner`` over the
     same store, byte for byte. K1 and K2 launches are counted over this
     phase and must both be > 0; then both kernels are held against the plain
-    version at the mirror's own shape. No merge may have failed and no read
+    version at the mirror's own shape, the edge queries of (b) included. No
+    merge may have failed and no read
     may have left the device (the engine's error, retry, escalation,
     degraded-seconds and background-rebuild counters all stay 0).
 (e) compaction on the main path, same store: a few hundred writes left in
@@ -49,6 +55,13 @@ result line):
     merge, publish) are printed; then K3 is held against the plain version
     on the inputs the compaction gave it.
 
+Each measured kernel case prints its time per call over many launches back
+to back between one pair of CUDA events (the host's side of each call
+included where it is the longer), its device time from ``torch.profiler``
+with the L2 cache flushed before each call, the plain version's time, its
+bound (the rows inside the queries' ranges for K1/K2, every valid row for
+K3) and, for K1/K2, the full-scan bound of every valid row.
+
 Output, last three lines: the kernels JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -58,6 +71,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -111,19 +125,44 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Time of one call of ``fn``: ``reps`` calls back to back between one
+    pair of CUDA events, after a warm-up call, over ``reps``. Where the
+    host's side of a call (a wrapper's checks, allocations and launch)
+    takes longer than the device's, this is the host's time."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+#: more than the H100's 50 MB L2 cache
+FLUSH_BYTES = 64 << 20
+
+
+def device_ms(fn, kernels: tuple[str, ...], reps: int) -> float | None:
+    """Device time per call of ``fn`` of the CUDA kernels whose names
+    contain one of ``kernels``, from ``torch.profiler``, with the L2 cache
+    flushed before every call (a request finds the mirror cold): the
+    kernels' own duration without the host's side of the call. None where
+    the profiler records no device time for them."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if any(k in ev.key for k in kernels))
+    return total / reps / 1e3 if total else None
 
 
 def _bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -132,16 +171,30 @@ def _bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def scan_bound_ms(keys_t, valid_rows: int, q: int) -> tuple[float, str]:
-    """Least time for one visibility launch: inputs read once (keys,
-    revisions and tombstones of the ``valid_rows`` rows below each
-    partition's n_valid, which are all the kernel reads; n_valid and the
+def scan_bound_ms(keys_t, rows: int, q: int, full: bool = False
+                  ) -> tuple[float, str]:
+    """Least time for one visibility launch that needs ``rows`` rows:
+    inputs read once (their keys, revisions and tombstones; n_valid and the
     per-query bounds), outputs written once (Q mask bytes for every row of
-    [P, N] and the counts), over the memory rate; or the 2·Q·C chunk
-    compares of each valid row over the vector rate, whichever is larger."""
+    [P, N] and the counts), over the memory rate; or the compares over the
+    vector rate, whichever is larger. The bound passes the rows inside the
+    queries' ranges (their union under n_valid), with C next-key and Q
+    revision compares each; the full-scan bound (``full``, the bound of the
+    kernel before it classified blocks) every valid row, with 2·Q·C chunk
+    compares each."""
     p, c, n = keys_t.shape
-    return _bound(valid_rows * (4 * c + 8 + 1) + 4 * p + q * (8 * c + 4 + 8)
-                  + q * p * n + 4 * q * p, 2 * q * c * valid_rows)
+    return _bound(rows * (4 * c + 8 + 1) + 4 * p + q * (8 * c + 4 + 8)
+                  + q * p * n + 4 * q * p,
+                  rows * (2 * q * c if full else c + q))
+
+
+def rows_in_range(keys_t, nv, starts, ends, unb) -> int:
+    """Valid rows inside at least one query's range (the union over the
+    queries): the rows whose columns a visibility launch must read."""
+    valid = (torch.arange(keys_t.shape[2], device=keys_t.device).unsqueeze(0)
+             < nv.to(torch.int64).unsqueeze(1))
+    hit = scan.key_in_range(keys_t, starts, ends, unb).any(dim=0)
+    return int((hit & valid).sum())
 
 
 def victim_bound_ms(keys_t, valid_rows: int) -> tuple[float, str]:
@@ -157,13 +210,16 @@ def victim_bound_ms(keys_t, valid_rows: int) -> tuple[float, str]:
 
 class Case:
     """One kernel call on fixed device inputs, its plain counterpart, the
-    comparison between them and the bound of the work."""
+    comparison between them and the bounds of the work (callables, computed
+    when the case is measured)."""
 
-    def __init__(self, name, kernel, plain, bound):
+    def __init__(self, name, kernel, plain, bound, bound_full, kernels):
         self.name = name
         self.kernel = kernel
         self.plain = plain
         self.bound = bound
+        self.bound_full = bound_full
+        self.kernels = kernels  # CUDA kernel names the profiler reports
 
     def check(self) -> int:
         """Max |kernel - plain| over every output (must be 0)."""
@@ -180,14 +236,17 @@ class Case:
         return err
 
     def measure(self, reps: int) -> dict:
-        b, by = self.bound
+        b, by = self.bound()
         return {"ms": time_ms(self.kernel, reps),
+                "device_ms": device_ms(self.kernel, self.kernels, reps),
                 "plain_ms": time_ms(self.plain, max(3, reps // 4)),
-                "bound_ms": b, "bound_by": by}
+                "bound_ms": b, "bound_by": by,
+                "bound_full_ms": self.bound_full()[0]}
 
 
 def scan_case(name, keys_t, revs, tomb, nv, starts, ends, unb, rrevs) -> Case:
     """K1 (``scan_mask``, the first query only) or K2 (``scan_mask_q``)."""
+    q = 1 if name == "scan_mask" else starts.shape[0]
     if name == "scan_mask":
         kernel = lambda: scan_kernels.visibility_mask_batch(
             keys_t, revs, tomb, nv, starts[0], ends[0], unb, rrevs)
@@ -203,7 +262,10 @@ def scan_case(name, keys_t, revs, tomb, nv, starts, ends, unb, rrevs) -> Case:
         return m, m.sum(dim=-1, dtype=torch.int32)
 
     return Case(name, kernel, plain,
-                scan_bound_ms(keys_t, int(nv.sum()), starts.shape[0]))
+                lambda: scan_bound_ms(keys_t, rows_in_range(
+                    keys_t, nv, starts[:q], ends[:q], unb[:q]), q),
+                lambda: scan_bound_ms(keys_t, int(nv.sum()), q, full=True),
+                ("visibility_kernel",))
 
 
 def victim_case(keys_t, revs, tomb, ttl, nv, start, end, unbounded,
@@ -211,9 +273,67 @@ def victim_case(keys_t, revs, tomb, ttl, nv, start, end, unbounded,
     """K3 on the given inputs (the wrapper's own argument list)."""
     args = (keys_t, revs, tomb, ttl, nv, start, end, unbounded, compact_rev,
             ttl_cutoff)
+    bound = lambda: victim_bound_ms(keys_t, int(nv.sum()))
     return Case("victim_mask", lambda: compact_kernels.victim_mask_batch(*args),
-                lambda: compact.victim_mask(*args),
-                victim_bound_ms(keys_t, int(nv.sum())))
+                lambda: compact.victim_mask(*args), bound, bound,
+                ("victim_mark_kernel", "victim_ttl_kernel"))
+
+
+def describe(name: str, what: str, m: dict) -> str:
+    """One measured case as a log line."""
+    blocks = (f", (query, block) pairs outside/inside/straddling "
+              f"{m['blocks']}" if "blocks" in m else "")
+    return (f"kernel {name} [{what}]: {m['ms']} ms per call back to back, "
+            f"device {m['device_ms']} ms (plain {m['plain_ms']} ms, bound "
+            f"{m['bound_ms']} ms by {m['bound_by']}, full-scan bound "
+            f"{m['bound_full_ms']} ms){blocks}, max_abs_err {m['max_abs_err']}")
+
+
+def block_census(keys_t, nv, starts, ends, unb) -> list[int]:
+    """(query, block) pairs of a launch that are outside, inside and
+    straddling, by the plain classification of the kernel's blocks."""
+    cls = scan.block_classes(keys_t, nv, starts, ends, unb)
+    return torch.bincount(cls.flatten().long(), minlength=3).tolist()
+
+
+def pow2_padded(specs: list) -> list:
+    """Specs padded to a power of two with copies of the first, as the
+    engine pads a batch (``TorchScanner._dev_mask_batch``)."""
+    q = 1
+    while q < len(specs):
+        q *= 2
+    return list(specs) + [specs[0]] * (q - len(specs))
+
+
+def edge_specs(key_at, rows, n_valid: int, read_rev: int) -> list:
+    """Queries on the kernels' block edges and the other edge cases of
+    their block classification. For each row r of ``rows`` (254: block 0's
+    last owned row; 255: its look-ahead row and block 1's first; 256; 510:
+    block 1's look-ahead row), a range that starts at row r's key and one
+    that ends at it; then start == end, a start past every key, an end below
+    every key, a NUL-bound single key and an unbounded end."""
+    specs = []
+    for r in rows:
+        k = key_at(r)
+        specs.append((k, key_at(min(r + 300, n_valid - 1)), read_rev))
+        specs.append((key_at(max(r - 300, 0)), k, read_rev))
+    k = key_at(rows[1])
+    specs += [(k, k, read_rev), (b"\xff", b"", read_rev),
+              (b"", b"/", read_rev), (k, k + b"\x00", read_rev),
+              (k, b"", read_rev)]
+    return specs
+
+
+def check_edges(cols, enc, width: int, specs, dev) -> dict:
+    """K1 on each of ``specs``, and K2 on all of them in one launch padded
+    as the engine pads a batch, against the plain version (bit-identical,
+    else AssertionError). ``cols`` = (keys_t, revs, tomb, n_valid)."""
+    err1 = max(scan_case("scan_mask", *cols, *query_tensors(
+        enc, width, [spec], dev)).check() for spec in specs)
+    q_args = query_tensors(enc, width, pow2_padded(specs), dev)
+    err2 = scan_case("scan_mask_q", *cols, *q_args).check()
+    return {"scan_mask": err1, "scan_mask_q": err2, "queries": len(specs),
+            "blocks": block_census(cols[0], cols[3], *q_args[:3])}
 
 
 def flipped(row, dev) -> torch.Tensor:
@@ -280,18 +400,29 @@ def kernel_phase(layouts: dict, revs_per_key: int, dev) -> dict:
             (b"/events/", b"/events0", n),
             (b"", b"", 1),
         ]
-        keys_t, revs, tomb, nv = bench_mirror(chunks, revs_per_key, dev)
+        cols = bench_mirror(chunks, revs_per_key, dev)
         for name, specs in (("scan_mask", specs_q[:1]), ("scan_mask_q", specs_q)):
-            case = scan_case(name, keys_t, revs, tomb, nv,
-                             *query_tensors(enc, width, specs, dev))
+            q_args = query_tensors(enc, width, specs, dev)
+            case = scan_case(name, *cols, *q_args)
             err = case.check()
             m = case.measure(reps=20)
-            m.update(max_abs_err=err, chunks=c, rows=n, queries=len(specs))
+            m.update(max_abs_err=err, chunks=c, rows=n, queries=len(specs),
+                     blocks=block_census(cols[0], cols[3], *q_args[:3]))
             results[(name, label)] = m
-            log(f"kernel {name} [{label}, C={c}, {n} rows, Q={len(specs)}]: "
-                f"{m['ms']} ms (plain {m['plain_ms']} ms, bound "
-                f"{m['bound_ms']} ms by {m['bound_by']}), max_abs_err {err}")
-        del keys_t, revs, tomb
+            log(describe(name, f"{label}, C={c}, {n} rows, Q={len(specs)}", m))
+        # key starts fall on block edges every lcm(255, revs_per_key) rows
+        step = math.lcm(scan.BLOCK_OWNED, revs_per_key)
+        rows = sorted({r for r in (254, 255, 256, 510, step - 1, step, step + 1,
+                                   n // 2 // step * step) if 0 < r < n})
+        edges = check_edges(cols, enc, width, edge_specs(
+            lambda r: bench_key(r // revs_per_key), rows, n, n // 2), dev)
+        for name in ("scan_mask", "scan_mask_q"):
+            results[(name, f"{label} edges")] = {"max_abs_err": edges[name]}
+        log(f"kernels scan_mask, scan_mask_q [{label}, {n} rows, "
+            f"{edges['queries']} edge queries at rows {rows}]: bit-identical "
+            f"to the plain version; (query, block) pairs outside/inside/"
+            f"straddling {edges['blocks']}")
+        del cols
         torch.cuda.empty_cache()
     return results
 
@@ -322,10 +453,9 @@ def victim_phase(layouts: dict, revs_per_key: int, dev) -> dict:
             m = case.measure(reps=20)
             m.update(max_abs_err=err, chunks=c, rows=n, victims=victims)
             results[(label, what)] = m
-            log(f"kernel victim_mask [{label}, C={c}, {n} rows, {what}, "
-                f"compact_rev {crev}, ttl_cutoff {cutoff}, {victims} "
-                f"victims]: {m['ms']} ms (plain {m['plain_ms']} ms, bound "
-                f"{m['bound_ms']} ms by {m['bound_by']}), max_abs_err {err}")
+            log(describe("victim_mask", f"{label}, C={c}, {n} rows, {what}, "
+                         f"compact_rev {crev}, ttl_cutoff {cutoff}, {victims} "
+                         f"victims", m))
         del keys_t, revs, tomb, ttl, key_of_row
         torch.cuda.empty_cache()
     results[("raw", "long chains")] = long_chain_case(dev)
@@ -374,11 +504,10 @@ def long_chain_case(dev) -> dict:
         raise AssertionError("a TTL chain past the cutoff did not expire whole")
     m = case.measure(reps=20)
     m.update(max_abs_err=err, rows=n, victims=int(mask.sum()))
-    log(f"kernel victim_mask [raw, {n_chains} chains of {lens.min()}-"
-        f"{lens.max()} rows, {n} rows, ttl_cutoff {cutoff}, "
-        f"{int(expires.sum())} chains expire whole, {m['victims']} victims]: "
-        f"{m['ms']} ms (plain {m['plain_ms']} ms, bound {m['bound_ms']} ms "
-        f"by {m['bound_by']}), max_abs_err {err}")
+    log(describe("victim_mask", f"raw, {n_chains} chains of {lens.min()}-"
+                 f"{lens.max()} rows, {n} rows, ttl_cutoff {cutoff}, "
+                 f"{int(expires.sum())} chains expire whole, {m['victims']} "
+                 f"victims", m))
     return m
 
 
@@ -594,22 +723,35 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
 
         # both kernels against the plain version at the mirror's own shape
         cases = {}
+        cols = (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
+                mirror.n_valid_dev)
+        p, c, n = mirror.keys_dev.shape
         for name, specs in (
                 ("scan_mask", [(ns[0], ns[1], head)]),
                 ("scan_mask_q", [(q[1], q[2], q[3] or head) for q in batch])):
-            case = scan_case(name, mirror.keys_dev, mirror.revs_dev,
-                             mirror.tomb_dev, mirror.n_valid_dev,
-                             *query_tensors(mirror.encoding, mirror.key_width,
-                                            specs, dev))
+            q_args = query_tensors(mirror.encoding, mirror.key_width, specs, dev)
+            case = scan_case(name, *cols, *q_args)
             err = case.check()
             m = case.measure(reps=50)
-            m["max_abs_err"] = err
-            p, c, n = mirror.keys_dev.shape
-            log(f"kernel {name} [main path mirror, P={p}, C={c}, N={n}, "
-                f"Q={len(specs)}]: {m['ms']} ms (plain {m['plain_ms']} ms, "
-                f"bound {m['bound_ms']} ms by {m['bound_by']}), "
-                f"max_abs_err {err}")
+            m.update(max_abs_err=err,
+                     blocks=block_census(cols[0], cols[3], *q_args[:3]))
+            log(describe(name, f"main path mirror, P={p}, C={c}, N={n}, "
+                         f"Q={len(specs)}", m))
             cases[name] = m
+        nv0 = int(mirror.n_valid[0])
+        mid = nv0 // 2 // scan.BLOCK_OWNED * scan.BLOCK_OWNED
+        rows = sorted({r for r in (254, 255, 256, 510, mid + 254, mid + 255,
+                                   mid + 256, mid + 510) if 0 < r < nv0})
+        edges = check_edges(cols, mirror.encoding, mirror.key_width,
+                            edge_specs(lambda r: mirror.user_key(0, r), rows,
+                                       nv0, head), dev)
+        for name in ("scan_mask", "scan_mask_q"):
+            cases[name]["max_abs_err"] = max(cases[name]["max_abs_err"],
+                                             edges[name])
+        log(f"kernels scan_mask, scan_mask_q [main path mirror, "
+            f"{edges['queries']} edge queries at rows {rows}]: bit-identical "
+            f"to the plain version; (query, block) pairs outside/inside/"
+            f"straddling {edges['blocks']}")
         # J1 (mask -> index block) beside its one-call yardstick
         mask, counts = scan_case(
             "scan_mask", mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
@@ -790,10 +932,8 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
         m = case.measure(reps=50)
         m["max_abs_err"] = err
         p, c, n = args[0].shape
-        log(f"kernel victim_mask [main path mirror, P={p}, C={c}, N={n}, "
-            f"{int(case.kernel().sum())} victims]: {m['ms']} ms (plain "
-            f"{m['plain_ms']} ms, bound {m['bound_ms']} ms by "
-            f"{m['bound_by']}), max_abs_err {err}")
+        log(describe("victim_mask", f"main path mirror, P={p}, C={c}, N={n}, "
+                     f"{int(case.kernel().sum())} victims", m))
         stayed_on_device(scanner, rebuilds, "compact")
         return {"launches": launches, "case": m}
     finally:
@@ -849,8 +989,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max([m["max_abs_err"]] + errs[name]),
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "bound_full_ms": m["bound_full_ms"],
             "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))

@@ -9,9 +9,17 @@ launches its kernel on the current stream, or raises. Each keeps a launch
 counter, a plain integer (``visibility_mask_batch.launches``), raised by one
 where it launches its kernel and nowhere else.
 
-Layout: keys_t int32[P, C, N] (chunk-major, sign-flipped), revs int64[P, N],
-tomb int8[P, N], n_valid int32[P]; bounds are sign-flipped int32 chunk rows,
-``unbounded`` int32 flags (1 = ignore the end bound), read revisions int64.
+Layout: keys_t int32[P, C, N] (chunk-major, sign-flipped, C <= 32),
+revs int64[P, N], tomb int8[P, N], n_valid int32[P]; bounds are sign-flipped
+int32 chunk rows, ``unbounded`` int32 flags (1 = ignore the end bound), read
+revisions int64.
+
+Precondition: the valid rows of each partition are non-decreasing in the
+flipped chunk order (sorted by key, then revision), as every mirror the
+engine publishes is. The kernel classifies each 256-row block per query from
+its first and last key and reads the rows of a block only where a query's
+range reaches into it (``scan.block_classes`` is the same classification in
+plain PyTorch); on unsorted rows its mask is undefined.
 """
 
 from __future__ import annotations
@@ -24,6 +32,10 @@ from . import scan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+#: chunks per key the kernel takes (KEY_WIDTH = 128 bytes): it is compiled
+#: for C <= 8 and for C <= 32
+MAX_CHUNKS = 32
 
 
 def _lib():
@@ -55,6 +67,9 @@ def _check_layout(keys_t, revs, tomb, n_valid, starts, ends, unbounded, read_rev
             raise ValueError(
                 f"visibility kernel wants {dtype}{list(shape)} contiguous on "
                 f"{dev}, got {t.dtype}{list(t.shape)} on {t.device}")
+    if c > MAX_CHUNKS:
+        raise ValueError(f"visibility kernel takes at most {MAX_CHUNKS} key "
+                         f"chunks, got {c}")
     return p, c, n, q
 
 
@@ -80,7 +95,8 @@ def visibility_mask_batch(keys_t, revs, tomb, n_valid, start, end, unbounded,
     """K1: one query over every partition → (mask bool[P, N], counts int32[P]).
 
     start/end int32[C] flipped bounds, unbounded int32[1], read_rev int64[1]
-    (the contract of ``_vis_batch_pallas``, ``storage/tpu/engine.py:222``)."""
+    (the contract of ``_vis_batch_pallas``, ``storage/tpu/engine.py:222``).
+    The valid rows of each partition must be sorted (module docstring)."""
     starts, ends = start.view(1, -1), end.view(1, -1)
     if keys_t.device.type == "cpu":
         mask = scan.visibility_mask(keys_t, revs, tomb, n_valid, starts, ends,
@@ -105,7 +121,8 @@ def visibility_mask_batch_q(keys_t, revs, tomb, n_valid, starts, ends,
 
     starts/ends int32[Q, C], unbounded int32[Q], read_revs int64[Q] (the
     contract of ``_vis_batch_pallas_q``, ``storage/tpu/engine.py:237``; the
-    engine pads Q to a power of two and callers slice ``[:len(specs)]``)."""
+    engine pads Q to a power of two and callers slice ``[:len(specs)]``).
+    The valid rows of each partition must be sorted (module docstring)."""
     if keys_t.device.type == "cpu":
         mask = scan.visibility_mask(keys_t, revs, tomb, n_valid, starts, ends,
                                     unbounded, read_revs)

@@ -2,10 +2,14 @@
 
 CPU tensors take the kernels' plain versions and launch nothing, so the
 rehearsal counts a launch where a wrapper calls its plain version, on the
-wrapper's own counter, and stubs the CUDA clock and synchronisation. What
-it checks is the script's control flow: every comparison it makes against
-the plain versions and the host ``Scanner``, the launch checks, and the
-compaction against the twin store. It measures nothing on a device.
+wrapper's own counter, and stubs the CUDA clock, the profiler and
+synchronisation. The visibility wrappers compute the kernel's own
+block-classified algorithm (``scan.visibility_mask_blocked``) in its place,
+so every K1/K2 check of the script holds that algorithm against the plain
+version. What it checks is the script's control flow: every comparison it
+makes against the plain versions and the host ``Scanner``, the launch
+checks, and the compaction against the twin store. It measures nothing on a
+device.
 
 Run as a script, it rehearses at a chosen size and prints each phase's
 host seconds (CPU numbers, not device metrics)::
@@ -27,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 from kubebrain_tpu_torch.ops import compact as tcompact  # noqa: E402
 from kubebrain_tpu_torch.ops import compact_kernels, scan_kernels  # noqa: E402
+from kubebrain_tpu_torch.ops import keys as keyops  # noqa: E402
 from kubebrain_tpu_torch.ops import scan as tscan  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -53,6 +58,7 @@ def cpu_shims(setattr_) -> None:
     setattr_(torch.cuda, "synchronize", lambda *a: None)
     setattr_(torch.cuda, "Event", _HostEvent)
     setattr_(torch.cuda, "empty_cache", lambda: None)
+    setattr_(chip_smoke, "device_ms", lambda fn, kernels, reps: (fn(), None)[1])
 
     def victim_mask(*args):
         compact_kernels.victim_mask_batch.launches += 1
@@ -64,8 +70,8 @@ def cpu_shims(setattr_) -> None:
         wrapper = (scan_kernels.visibility_mask_batch if starts.shape[0] == 1
                    else scan_kernels.visibility_mask_batch_q)
         wrapper.launches += 1
-        return tscan.visibility_mask(keys_t, revs, tomb, nv, starts, ends,
-                                     unb, rrevs)
+        return tscan.visibility_mask_blocked(keys_t, revs, tomb, nv, starts,
+                                             ends, unb, rrevs)
 
     setattr_(compact_kernels, "compact",
              types.SimpleNamespace(victim_mask=victim_mask))
@@ -89,11 +95,14 @@ def test_kernel_phases(shims):
     layouts = chip_smoke.bench_layouts(300)
     bench = chip_smoke.kernel_phase(layouts, 4, CPU)
     victims = chip_smoke.victim_phase(layouts, 4, CPU)
-    assert len(bench) == 4 and len(victims) == 7
+    assert len(bench) == 8 and len(victims) == 7
     for m in [*bench.values(), *victims.values()]:
         assert m["max_abs_err"] == 0
-    for m in bench.values():
-        assert m["bound_by"] == "bytes" and m["bound_ms"] > 0
+    for (_name, label), m in bench.items():
+        if label.endswith("edges"):
+            continue
+        assert m["bound_by"] == "bytes" and 0 < m["bound_ms"] <= m["bound_full_ms"]
+        assert sum(m["blocks"]) > 0 and "device_ms" in m
     assert victims[("raw", "long chains")]["victims"] > 0
     assert all(v["victims"] > 0 for v in victims.values())
 
@@ -115,6 +124,52 @@ def test_main_path_and_compaction(shims, seed):
     assert min(launches.values()) > 0 and compacted["launches"] == 1
     assert compacted["case"]["max_abs_err"] == 0
     assert all(m["max_abs_err"] == 0 for m in cases.values())
+
+
+@pytest.mark.parametrize("encoded", [False, True], ids=["raw", "encoded"])
+def test_edge_queries_land_on_block_edges(shims, encoded):
+    """The edge queries of phase (b) start and end at the keys of the rows
+    they name, and every one of them agrees with the plain version."""
+    n_keys, revs_per_key = 600, 5
+    enc, chunks = chip_smoke.bench_layouts(n_keys)["encoded" if encoded else "raw"]
+    cols = chip_smoke.bench_mirror(chunks, revs_per_key, CPU)
+    n = n_keys * revs_per_key
+    key_at = lambda r: chip_smoke.bench_key(r // revs_per_key)
+    rows = [254, 255, 256, 510, 1275]
+    specs = chip_smoke.edge_specs(key_at, rows, n, n // 2)
+    assert len(specs) == 2 * len(rows) + 5
+    assert specs[2 * rows.index(1275)][0] == key_at(1275) != key_at(1274)
+    got = chip_smoke.check_edges(cols, enc, keyops.KEY_WIDTH, specs, CPU)
+    assert got["scan_mask"] == got["scan_mask_q"] == 0
+    assert got["queries"] == len(specs) and all(got["blocks"])
+
+
+@pytest.mark.parametrize("broken", ["last_owned_row", "look_ahead_row"])
+def test_edge_checks_catch_a_wrong_block_edge(shims, monkeypatch, broken):
+    """A kernel that gets one row of every block edge wrong fails the edge
+    checks: they have teeth."""
+    cols = chip_smoke.bench_mirror(
+        chip_smoke.bench_layouts(600)["raw"][1], 5, CPU)
+    off = 254 if broken == "last_owned_row" else 255
+
+    def wrong(*args):
+        mask = tscan.visibility_mask(*args).clone()
+        mask[..., off :: tscan.BLOCK_OWNED] ^= True
+        return mask
+
+    monkeypatch.setattr(scan_kernels, "scan",
+                        types.SimpleNamespace(visibility_mask=wrong))
+    specs = chip_smoke.edge_specs(lambda r: chip_smoke.bench_key(r // 5),
+                                  [254, 255, 256, 510], 3000, 1500)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_edges(cols, None, keyops.KEY_WIDTH, specs, CPU)
+
+
+def test_pow2_padding_copies_the_first_query():
+    specs = [(b"a", b"b", i) for i in range(5)]
+    padded = chip_smoke.pow2_padded(specs)
+    assert len(padded) == 8 and padded[5:] == [specs[0]] * 3
+    assert chip_smoke.pow2_padded(specs[:1]) == specs[:1]
 
 
 @pytest.mark.parametrize("moved", [*chip_smoke.OFF_DEVICE_COUNTERS,
