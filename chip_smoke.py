@@ -26,10 +26,16 @@ result line):
     revision with a TTL cutoff below it, once unbounded and once over
     [start, end), and once with the cutoff past the compact revision; then
     a mirror of 24 chains of 1,000-5,853 rows, which cross many of the
-    kernel's 256-row blocks, with a TTL cutoff that
-    expires some chains whole and leaves others. Every mask must be
+    kernel's tiles, with a TTL cutoff that expires some chains whole and
+    leaves others; then the tile-edge mirror (P = 3, one partition empty, a
+    capacity that is no multiple of the rows per thread; chains of tile-1,
+    tile, tile+1, 2·tile, tile and 5·tile rows, so chains start on a tile's
+    first row and end on its last, and tiles hold no group end) under six
+    cases, bounds on tile edges and a cutoff of 0 among them, raw (C = 32)
+    and narrow (C = 8). Every mask and every per-partition count must be
     bit-identical to the plain PyTorch version; kernel, plain and bound
-    times are printed.
+    times are printed, with each case's tile census (tiles outside, inside,
+    straddling, past n_valid, and tiles that looked back).
 (c) main path: ``--keys`` kube-shaped user keys (version chains, tombstones,
     256–2047-byte values) loaded into memkv, served by
     ``Backend(new_storage("cuda", inner=...))``: per-namespace Range, full
@@ -52,15 +58,16 @@ result line):
     compacted store; ``full_rebuild_total`` must not move, the mirror path
     must be ``stored_incremental``, K3 must have launched and the counters
     of (c) must still be 0. The phase seconds (pre-pass merge, mark, gc,
-    merge, publish) are printed; then K3 is held against the plain version
-    on the inputs the compaction gave it.
+    merge, publish) are printed; then K3's mask and counts are held against
+    the plain version on the inputs the compaction gave it.
 
 Each measured kernel case prints its time per call over many launches back
 to back between one pair of CUDA events (the host's side of each call
 included where it is the longer), its device time from ``torch.profiler``
 with the L2 cache flushed before each call, the plain version's time, its
-bound (the rows inside the queries' ranges for K1/K2, every valid row for
-K3) and, for K1/K2, the full-scan bound of every valid row.
+bound (the valid rows inside the queries' ranges for K1/K2, inside the
+compaction's [start, end) for K3) and the full-scan bound of every valid
+row.
 
 Output, last three lines: the kernels JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -197,15 +204,39 @@ def rows_in_range(keys_t, nv, starts, ends, unb) -> int:
     return int((hit & valid).sum())
 
 
-def victim_bound_ms(keys_t, valid_rows: int) -> tuple[float, str]:
-    """Least time for one K3 launch: keys, revision, tombstone and TTL flag
-    of each valid row read once, n_valid and the two bounds, one mask byte
-    written for every row of [P, N], over the memory rate; or the 3·C chunk
-    compares (next key, start, end) of each valid row over the vector
-    rate, whichever is larger."""
+def victim_bound_ms(keys_t, rows: int, full: bool = False) -> tuple[float, str]:
+    """Least time for one K3 launch that needs ``rows`` rows: keys,
+    revision, tombstone and TTL flag of each read once, n_valid and the two
+    bounds, one mask byte written for every row of [P, N] and the counts,
+    over the memory rate; or the compares over the vector rate, whichever
+    is larger. The bound passes the valid rows inside [start, end), with C
+    next-key compares each; the full-scan bound (``full``, the bound of the
+    kernel before it classified tiles) every valid row, with 3·C chunk
+    compares each (next key, start, end)."""
     p, c, n = keys_t.shape
-    return _bound(valid_rows * (4 * c + 8 + 1 + 1) + 4 * p + 8 * c + p * n,
-                  3 * c * valid_rows)
+    return _bound(rows * (4 * c + 8 + 1 + 1) + 4 * p + 8 * c + p * n + 4 * p,
+                  rows * (3 * c if full else c))
+
+
+def victim_rows_in_range(keys_t, nv, start, end, unbounded) -> int:
+    """Valid rows inside [start, end): the rows whose columns K3 must read."""
+    valid = (torch.arange(keys_t.shape[2], device=keys_t.device).unsqueeze(0)
+             < nv.to(torch.int64).unsqueeze(1))
+    unb = torch.tensor([int(bool(unbounded))], device=keys_t.device)
+    hit = scan.key_in_range(keys_t, start.view(1, -1), end.view(1, -1), unb)[0]
+    return int((hit & valid).sum())
+
+
+def tile_census(keys_t, revs, ttl, nv, start, end, unbounded,
+                ttl_cutoff) -> dict:
+    """K3's tiles of one launch by the plain classification: outside,
+    inside, straddling, past n_valid, and the tiles that looked back."""
+    cls, reach = compact.victim_lookback(keys_t, revs, ttl, nv, start, end,
+                                         unbounded, ttl_cutoff)
+    n = torch.bincount(cls.flatten().long(), minlength=4).tolist()
+    return {"outside": n[compact.OUTSIDE], "inside": n[compact.INSIDE],
+            "straddling": n[compact.STRADDLE], "past": n[compact.PAST],
+            "looked_back": int((reach >= 0).sum())}
 
 
 class Case:
@@ -270,23 +301,46 @@ def scan_case(name, keys_t, revs, tomb, nv, starts, ends, unb, rrevs) -> Case:
 
 def victim_case(keys_t, revs, tomb, ttl, nv, start, end, unbounded,
                 compact_rev, ttl_cutoff) -> Case:
-    """K3 on the given inputs (the wrapper's own argument list)."""
+    """K3 on the given inputs (the wrapper's own argument list): its mask
+    and per-partition counts."""
     args = (keys_t, revs, tomb, ttl, nv, start, end, unbounded, compact_rev,
             ttl_cutoff)
-    bound = lambda: victim_bound_ms(keys_t, int(nv.sum()))
+
+    def plain():
+        m = compact.victim_mask(*args)
+        return m, m.sum(dim=1, dtype=torch.int32)
+
     return Case("victim_mask", lambda: compact_kernels.victim_mask_batch(*args),
-                lambda: compact.victim_mask(*args), bound, bound,
-                ("victim_mark_kernel", "victim_ttl_kernel"))
+                plain,
+                lambda: victim_bound_ms(keys_t, victim_rows_in_range(
+                    keys_t, nv, start, end, unbounded)),
+                lambda: victim_bound_ms(keys_t, int(nv.sum()), full=True),
+                ("victim_kernel",))
+
+
+def victim_checks(args: tuple, measure_reps: int = 0) -> dict:
+    """K3 on ``args`` against the plain version, mask and counts (raises
+    where they differ); measured with ``measure_reps``. Adds the victims
+    and the tile census."""
+    case = victim_case(*args)
+    err = case.check()
+    m = case.measure(measure_reps) if measure_reps else {}
+    keys_t, revs, _tomb, ttl, nv, start, end, unb, _crev, cutoff = args
+    m.update(max_abs_err=err, victims=int(case.kernel()[1].sum()),
+             tiles=tile_census(keys_t, revs, ttl, nv, start, end, unb, cutoff))
+    return m
 
 
 def describe(name: str, what: str, m: dict) -> str:
     """One measured case as a log line."""
     blocks = (f", (query, block) pairs outside/inside/straddling "
               f"{m['blocks']}" if "blocks" in m else "")
+    tiles = f", tiles {m['tiles']}" if "tiles" in m else ""
     return (f"kernel {name} [{what}]: {m['ms']} ms per call back to back, "
             f"device {m['device_ms']} ms (plain {m['plain_ms']} ms, bound "
             f"{m['bound_ms']} ms by {m['bound_by']}, full-scan bound "
-            f"{m['bound_full_ms']} ms){blocks}, max_abs_err {m['max_abs_err']}")
+            f"{m['bound_full_ms']} ms){blocks}{tiles}, max_abs_err "
+            f"{m['max_abs_err']}")
 
 
 def block_census(keys_t, nv, starts, ends, unb) -> list[int]:
@@ -428,8 +482,8 @@ def kernel_phase(layouts: dict, revs_per_key: int, dev) -> dict:
 
 
 def victim_phase(layouts: dict, revs_per_key: int, dev) -> dict:
-    """(d): K3 against the plain version on the bench mirror and on long
-    TTL chains."""
+    """(d): K3 against the plain version on the bench mirror, on long TTL
+    chains and on the tile-edge mirror."""
     width = keyops.KEY_WIDTH
     results = {}
     for label, (enc, chunks) in layouts.items():
@@ -446,19 +500,18 @@ def victim_phase(layouts: dict, revs_per_key: int, dev) -> dict:
                 ("[start, end)", middle, n // 2, n // 3),
                 ("unbounded, cutoff past compact", (b"", b""), n // 3, n // 2)):
             s_row, e_row, unb = bound_rows(enc, width, *bounds)
-            case = victim_case(keys_t, revs, tomb, ttl, nv, flipped(s_row, dev),
-                               flipped(e_row, dev), unb, crev, cutoff)
-            err = case.check()
-            victims = int(case.kernel().sum())
-            m = case.measure(reps=20)
-            m.update(max_abs_err=err, chunks=c, rows=n, victims=victims)
+            m = victim_checks((keys_t, revs, tomb, ttl, nv, flipped(s_row, dev),
+                               flipped(e_row, dev), unb, crev, cutoff),
+                              measure_reps=20)
+            m.update(chunks=c, rows=n)
             results[(label, what)] = m
             log(describe("victim_mask", f"{label}, C={c}, {n} rows, {what}, "
-                         f"compact_rev {crev}, ttl_cutoff {cutoff}, {victims} "
-                         f"victims", m))
+                         f"compact_rev {crev}, ttl_cutoff {cutoff}, "
+                         f"{m['victims']} victims", m))
         del keys_t, revs, tomb, ttl, key_of_row
         torch.cuda.empty_cache()
     results[("raw", "long chains")] = long_chain_case(dev)
+    results.update(tile_edge_phase(dev))
     return results
 
 
@@ -496,19 +549,91 @@ def long_chain_case(dev) -> dict:
     nv = torch.tensor([n], dtype=torch.int32, device=dev)
     zero = flipped(np.zeros(chunks.shape[1], np.uint32), dev)
     compact_rev = int(np.median(revs_np))
-    case = victim_case(keys_t, revs, tomb, ttl, nv, zero, zero, True,
-                       compact_rev, cutoff)
-    err = case.check()
-    mask = case.kernel().cpu().numpy()[0]
+    args = (keys_t, revs, tomb, ttl, nv, zero, zero, True, compact_rev, cutoff)
+    m = victim_checks(args, measure_reps=20)
+    mask = compact_kernels.victim_mask_batch(*args)[0].cpu().numpy()[0]
     if not mask[expires[chain]].all():
         raise AssertionError("a TTL chain past the cutoff did not expire whole")
-    m = case.measure(reps=20)
-    m.update(max_abs_err=err, rows=n, victims=int(mask.sum()))
+    m["rows"] = n
     log(describe("victim_mask", f"raw, {n_chains} chains of {lens.min()}-"
                  f"{lens.max()} rows, {n} rows, ttl_cutoff {cutoff}, "
                  f"{int(expires.sum())} chains expire whole, {m['victims']} "
                  f"victims", m))
     return m
+
+
+def tile_edge_mirror(tile: int, width: int, dev):
+    """K3's tile-edge mirror, raw keys cut to ``width`` bytes, P = 3:
+
+    - partition 0: TTL chains '/events/edge-a' .. 'edge-f' of tile-1, tile,
+      tile+1, 2·tile, tile and 5·tile rows (b starts on tile 0's last row,
+      c ends on tile 2's last row, d fills tiles 3-4, e tile 5 and f tiles
+      6-10, so tiles 3 and 6-9 hold no group end), then 37 singletons,
+      every seventh row a tombstone;
+    - partition 1: empty (n_valid 0);
+    - partition 2: '/registry/edge/' chains of 3 rows and one of tile+5
+      rows, without TTL;
+
+    revisions ascend with the row inside each partition, and the capacity
+    is the largest n_valid + 37, a multiple of neither 4 nor 8 nor the
+    tile. Returns (keys_t, revs, tomb, ttl, n_valid, the user key of each
+    row of partition 0)."""
+    part0 = [b"/events/edge-%s" % name for name, rows in (
+        (b"a", tile - 1), (b"b", tile), (b"c", tile + 1), (b"d", 2 * tile),
+        (b"e", tile), (b"f", 5 * tile)) for _ in range(rows)]
+    part0 += [b"/events/edge-s%04d" % i for i in range(37)]
+    part2 = ([b"/registry/edge/k%04d" % (i // 3) for i in range(3 * 40)]
+             + [b"/registry/edge/long"] * (tile + 5))
+    parts = [part0, [], part2]
+    cap = max(len(x) for x in parts) + 37
+    keys = np.zeros((3, cap, width), np.uint8)
+    revs = np.zeros((3, cap), np.int64)
+    tomb = np.zeros((3, cap), np.int8)
+    ttl = np.zeros((3, cap), np.int8)
+    for p, rows in enumerate(parts):
+        for i, k in enumerate(rows):
+            keys[p, i, : len(k)] = np.frombuffer(k, np.uint8)
+        revs[p, : len(rows)] = np.arange(1, len(rows) + 1)
+        tomb[p, : len(rows)] = np.arange(len(rows)) % 7 == 6
+        ttl[p, : len(rows)] = [k.startswith(b"/events/") for k in rows]
+    chunks = keyops.bytes_to_chunks(keys.reshape(3 * cap, width))
+    chunks = chunks.reshape(3, cap, -1)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cols = (put(np.transpose(flip_sign(chunks), (0, 2, 1))), put(revs),
+            put(tomb), put(ttl), put(np.array([len(x) for x in parts], np.int32)))
+    return (*cols, part0)
+
+
+def tile_edge_phase(dev) -> dict:
+    """(d), last: K3 on the tile-edge mirror under six cases, raw (C = 32)
+    and narrow (C = 8): mask and counts bit-identical to the plain
+    version."""
+    tile = compact.TILE_ROWS
+    results = {}
+    for label, width in (("raw", keyops.KEY_WIDTH), ("narrow", 32)):
+        *cols, key0 = tile_edge_mirror(tile, width, dev)
+        c = cols[0].shape[1]
+        zero = flipped(np.zeros(c, np.uint32), dev)
+        at = lambda row: flipped(keyops.pack_one(key0[row], width), dev)
+        for what, (s, e), crev, cutoff in (
+                ("unbounded, a and b expire", (None, None), 8 * tile, 2 * tile),
+                ("unbounded, a-e expire", (None, None), 8 * tile, 6 * tile),
+                ("[tile 3, tile 5)", (3 * tile, 5 * tile), 8 * tile, 6 * tile),
+                ("[row tile-1, row 2·tile-1)", (tile - 1, 2 * tile - 1),
+                 8 * tile, 2 * tile),
+                ("unbounded, cutoff 0", (None, None), 8 * tile, 0),
+                ("unbounded, cutoff past compact", (None, None), 2 * tile,
+                 12 * tile)):
+            bounds = (zero, zero, True) if s is None else (at(s), at(e), False)
+            args = (*cols, *bounds, crev, cutoff)
+            m = victim_checks(args)
+            results[(f"tile edges {label}", what)] = m
+            log(f"kernel victim_mask [tile edges, {label}, C={c}, P=3, "
+                f"n_valid {cols[4].tolist()}, N={cols[0].shape[2]}, tile "
+                f"{tile}, {what}, compact_rev {crev}, ttl_cutoff {cutoff}]: "
+                f"mask and counts bit-identical to the plain version, "
+                f"{m['victims']} victims, tiles {m['tiles']}")
+    return results
 
 
 # ------------------------------------------------------------ phases c, e
@@ -927,13 +1052,10 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
 
         # K3 against the plain version on the main path's own inputs
         args = scanner._victim_args(*marked[0])
-        case = victim_case(*args)
-        err = case.check()
-        m = case.measure(reps=50)
-        m["max_abs_err"] = err
+        m = victim_checks(args, measure_reps=50)
         p, c, n = args[0].shape
         log(describe("victim_mask", f"main path mirror, P={p}, C={c}, N={n}, "
-                     f"{int(case.kernel().sum())} victims", m))
+                     f"{m['victims']} victims", m))
         stayed_on_device(scanner, rebuilds, "compact")
         return {"launches": launches, "case": m}
     finally:

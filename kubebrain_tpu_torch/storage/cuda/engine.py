@@ -165,15 +165,6 @@ def _part_indices_of_mask(mask: torch.Tensor, size: int) -> torch.Tensor:
     return out[..., :size]
 
 
-def _victim_part_counts(mask: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """J3: per-partition victims and valid rows of a victim mask [P, N] as
-    one int32[2, P] device tensor (counterpart of ``_victim_part_counts``,
-    ``storage/tpu/engine.py:343``): 8·P bytes tell the host how large an
-    index block to pull and whether victims or survivors are fewer."""
-    return torch.stack([mask.sum(dim=1, dtype=torch.int32),
-                        n_valid.clamp(max=mask.shape[-1])])
-
-
 def _part_survivor_indices(mask: torch.Tensor, n_valid: torch.Tensor,
                            size: int) -> torch.Tensor:
     """J3: per-partition SURVIVOR row indices [P, size] (fill = N) of a
@@ -895,23 +886,26 @@ class TorchScanner(Scanner):
                 unbounded, compact_rev, ttl_cutoff)
 
     def _victim_mask(self, mirror: Mirror, start: bytes, end: bytes,
-                     compact_rev: int, ttl_cutoff: int) -> torch.Tensor:
-        """The victim mask [P, N] through K3, the one place compaction
+                     compact_rev: int, ttl_cutoff: int):
+        """The victim mask [P, N] and the victims of each partition
+        int32[P], both from one K3 launch, the one place compaction
         launches it."""
         return compact_kernels.victim_mask_batch(*self._victim_args(
             mirror, start, end, compact_rev, ttl_cutoff))
 
-    def _pull_victim_indices(self, mask: torch.Tensor,
+    def _pull_victim_indices(self, mask: torch.Tensor, counts: torch.Tensor,
                              mirror: Mirror) -> dict[int, np.ndarray]:
         """``{partition: ascending victim row indices}`` for every partition
         with a victim, through the two-phase transfer of
-        ``storage/tpu/engine.py:1622``: the per-partition counts first
-        (8·P bytes), then only the smaller of the victim and survivor index
+        ``storage/tpu/engine.py:1622``: K3's per-partition victim counts
+        first (4·P bytes; the valid rows come from the mirror's host
+        ``n_valid``), then only the smaller of the victim and survivor index
         sets as a [P, pow2(max count)] block, the complement rebuilt on the
         host. The [P, N] mask itself crosses only when that block would be
         wider than it."""
         n_rows = int(mask.shape[-1])
-        vic_h, valid_h = _host_pull(_victim_part_counts(mask, mirror.n_valid_dev))
+        vic_h = _host_pull(counts)
+        valid_h = np.minimum(mirror.n_valid, n_rows)
         total_vic = int(vic_h.sum())
         if total_vic == 0:
             return {}
@@ -975,8 +969,8 @@ class TorchScanner(Scanner):
             try:
                 t0 = time.monotonic()
                 victims_by_part = self._pull_victim_indices(
-                    self._victim_mask(mirror, start, end, compact_revision,
-                                      ttl_cutoff), mirror)
+                    *self._victim_mask(mirror, start, end, compact_revision,
+                                       ttl_cutoff), mirror)
                 phases["mark"] = time.monotonic() - t0
 
                 t0 = time.monotonic()

@@ -3,9 +3,10 @@
 CPU tensors take the kernels' plain versions and launch nothing, so the
 rehearsal counts a launch where a wrapper calls its plain version, on the
 wrapper's own counter, and stubs the CUDA clock, the profiler and
-synchronisation. The visibility wrappers compute the kernel's own
-block-classified algorithm (``scan.visibility_mask_blocked``) in its place,
-so every K1/K2 check of the script holds that algorithm against the plain
+synchronisation. The wrappers compute the kernels' own algorithms in place
+of the plain versions (K1/K2's block-classified
+``scan.visibility_mask_blocked``, K3's tiled ``compact.victim_mask_tiled``),
+so every check of the script holds those algorithms against the plain
 version. What it checks is the script's control flow: every comparison it
 makes against the plain versions and the host ``Scanner``, the launch
 checks, and the compaction against the twin store. It measures nothing on a
@@ -62,7 +63,7 @@ def cpu_shims(setattr_) -> None:
 
     def victim_mask(*args):
         compact_kernels.victim_mask_batch.launches += 1
-        return tcompact.victim_mask(*args)
+        return tcompact.victim_mask_tiled(*args)
 
     def visibility_mask(keys_t, revs, tomb, nv, starts, ends, unb, rrevs):
         # K1 passes one query; K2 two or more (scan_batch sends a single
@@ -95,7 +96,8 @@ def test_kernel_phases(shims):
     layouts = chip_smoke.bench_layouts(300)
     bench = chip_smoke.kernel_phase(layouts, 4, CPU)
     victims = chip_smoke.victim_phase(layouts, 4, CPU)
-    assert len(bench) == 8 and len(victims) == 7
+    # K3: 3 cases x raw/encoded, long chains, 6 tile-edge cases x raw/narrow
+    assert len(bench) == 8 and len(victims) == 19
     for m in [*bench.values(), *victims.values()]:
         assert m["max_abs_err"] == 0
     for (_name, label), m in bench.items():

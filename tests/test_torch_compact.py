@@ -144,12 +144,15 @@ def port_victims(chunks, revs, tomb, ttl, crev, tcut, s_row, e_row, unb,
         t[p, : hi - lo], x[p, : hi - lo] = tomb[lo:hi], ttl[lo:hi]
         nv[p] = hi - lo
     kt, rv, t8 = tscan.prepare_layout(k, r, t)
-    mask = compact_kernels.victim_mask_batch(
+    mask, counts = compact_kernels.victim_mask_batch(
         torch.from_numpy(kt), torch.from_numpy(rv), torch.from_numpy(t8),
         torch.from_numpy(x), torch.from_numpy(nv),
         torch.from_numpy(tscan.flip_sign(s_row)),
-        torch.from_numpy(tscan.flip_sign(e_row)), unb, crev, tcut).numpy()
+        torch.from_numpy(tscan.flip_sign(e_row)), unb, crev, tcut)
+    mask = mask.numpy()
     assert not mask[np.arange(cap)[None, :] >= nv[:, None]].any()
+    assert counts.dtype == torch.int32
+    assert (counts.numpy() == mask.sum(axis=1)).all()
     return np.concatenate([mask[p, : nv[p]] for p in range(parts)])
 
 
@@ -180,8 +183,8 @@ def test_plain_victims_match_jnp_and_pallas(compact_at, seed, with_ttl, bounds,
 @pytest.mark.parametrize("encoded", [False, True])
 @pytest.mark.parametrize("expire", [True, False])
 def test_ttl_chain_longer_than_1000_rows(expire, encoded):
-    """A TTL chain of 4096 rows (past the jnp cap of 64, across many of the
-    kernel's 256-row blocks) expires whole when its last revision is at or
+    """A TTL chain of 4096 rows (past the jnp cap of 64, across two of the
+    kernel's 2,048-row tiles) expires whole when its last revision is at or
     below the cutoff, and no row of it expires when the last revision is
     past the cutoff; the Pallas kernel agrees row for row."""
     half = TILE
@@ -520,8 +523,8 @@ def test_compact_victim_only_decode(tb):
     victims = {}
     orig_pull = teng.TorchScanner._pull_victim_indices
 
-    def pull_spy(self, mask, m):
-        out = orig_pull(self, mask, m)
+    def pull_spy(self, mask, counts, m):
+        out = orig_pull(self, mask, counts, m)
         victims.update(out)
         return out
 
@@ -841,15 +844,17 @@ def test_pull_victim_indices_branches(shape):
     sc = teng.TorchScanner(t_new_storage("memkv"),
                            get_compact_revision=lambda _s: 0, device="cpu")
     try:
-        fake = mock.Mock(n_valid_dev=torch.from_numpy(nv))
+        fake = mock.Mock(n_valid=nv, n_valid_dev=torch.from_numpy(nv))
+        counts = torch.from_numpy(mask.sum(axis=1).astype(np.int32))
         pulls = []
         real = teng._host_pull
         with mock.patch.object(teng, "_host_pull",
                                lambda x: pulls.append(tuple(x.shape)) or real(x)):
-            got = sc._pull_victim_indices(torch.from_numpy(mask), fake)
+            got = sc._pull_victim_indices(torch.from_numpy(mask), counts, fake)
         assert sorted(got) == [0, 2]
         for p in (0, 2):
             assert (got[p] == np.nonzero(mask[p])[0]).all()
+        assert pulls[0] == (3,)  # the launch's counts, 4·P bytes
         assert (pulls[-1] == (3, n)) == (shape == "dense")
     finally:
         sc.close()
