@@ -60,11 +60,37 @@ result line):
     of (c) must still be 0. The phase seconds (pre-pass merge, mark, gc,
     merge, publish) are printed; then K3's mask and counts are held against
     the plain version on the inputs the compaction gave it.
+(f) watch fan-out on the main path, same Backend (built with
+    ``BackendConfig(fanout_matcher=DeviceFanout())``). First the kernels:
+    K4 (``fanout_dispatch``: counts and compacted indices) and K5
+    (``fanout_mask_range``: the legacy E-major mask) must be bit-identical
+    to the plain version on (i) ``bench.py``'s fan-out population (10,000
+    watchers, 100 broad) x 512 events, C = 16; (ii) the same generator at
+    100,000 watchers (1,000 broad) x 4,096 events; (iii) the edge cases
+    (event keys equal to a start and to an end, a NUL-bound single key,
+    revisions at and one below min_rev, n_ev < E, slots freed by a churn
+    sync, a size below the total, a 200-byte key that makes C = 64), also
+    held against ``match_oracle``, and a block of 4,096 events at a pinned
+    16-byte width (C = 4); (iv) K5 at 10,000 x 300 and x 512.
+    Then end to end: ``--watchers`` watchers of the (i) shape registered
+    through ``Backend.watch_range`` (a fifth of them starting a few hundred
+    revisions ahead), drained by consumer threads, while ``--writers``
+    threads write ``--writes`` creates, updates and deletes. Every
+    watcher's events must equal ``match_oracle`` over the hub's full event
+    stream, in revision order, none dropped; the matcher's blocks and
+    dispatches and K4's launches must all be > 0. The same drive at a
+    tenth of the size runs a second Backend whose hub holds the legacy
+    ``FanoutMatcher`` (K5's launches > 0). Last, the routing crossover: one
+    block at 10,000 watchers without the broad cohort (the hub's interval
+    index serves it) for E in {1, 8, 64, 512}: the hub's K4 route
+    (``DeviceFanout.deliver`` and the queue puts) against ``stream`` through
+    the index of a hub without a matcher.
 
 Each measured kernel case prints its time per call over many launches back
 to back between one pair of CUDA events (the host's side of each call
 included where it is the longer), its device time from ``torch.profiler``
-with the L2 cache flushed before each call, the plain version's time, its
+with the L2 cache flushed before each call (and the kernel records the
+profiler kept per call), the plain version's time, its
 bound (the valid rows inside the queries' ranges for K1/K2, inside the
 compaction's [start, end) for K3) and the full-scan bound of every valid
 row.
@@ -76,28 +102,36 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import math
+import queue
 import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from kubebrain_tpu_torch import _build, coder
 from kubebrain_tpu_torch.backend import Backend, BackendConfig
-from kubebrain_tpu_torch.backend.common import LAST_REV_KEY, TOMBSTONE
+from kubebrain_tpu_torch.backend.common import LAST_REV_KEY, TOMBSTONE, WatchEvent
 from kubebrain_tpu_torch.backend.scanner import EVENTS_TTL_SECONDS, Scanner
+from kubebrain_tpu_torch.backend.watcherhub import ProgressMarker, WatcherHub
 from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
-from kubebrain_tpu_torch.ops import compact, compact_kernels, scan, scan_kernels
+from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
+from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
+from kubebrain_tpu_torch.ops import scan, scan_kernels
 from kubebrain_tpu_torch.ops import keys as keyops
 from kubebrain_tpu_torch.ops.scan import flip_sign
 from kubebrain_tpu_torch.storage import new_storage
 from kubebrain_tpu_torch.storage.cuda.encode import build_encoding
+from kubebrain_tpu_torch.trace import TRACER
 from kubebrain_tpu_torch.storage.cuda.engine import (
     _part_indices_of_mask,
     bound_rows,
@@ -110,11 +144,15 @@ SOURCES = {
     "scan_mask": "kubebrain_tpu_torch/csrc/scan_visibility.cu",
     "scan_mask_q": "kubebrain_tpu_torch/csrc/scan_visibility.cu",
     "victim_mask": "kubebrain_tpu_torch/csrc/compact_victims.cu",
+    "fanout_dispatch": "kubebrain_tpu_torch/csrc/fanout_match.cu",
+    "fanout_mask_range": "kubebrain_tpu_torch/csrc/fanout_match.cu",
 }
 REPLACES = {
     "scan_mask": "kubebrain_tpu/ops/scan_pallas.py:175",
     "scan_mask_q": "kubebrain_tpu/ops/scan_pallas.py:222",
     "victim_mask": "kubebrain_tpu/ops/compact_pallas.py:122",
+    "fanout_dispatch": "kubebrain_tpu/fanout/dispatch.py:68",
+    "fanout_mask_range": "kubebrain_tpu/ops/fanout.py:46",
 }
 VICTIM_FIELDS = ("deleted_versions", "deleted_tombstones", "deleted_rev_records",
                  "expired_ttl")
@@ -152,12 +190,18 @@ def time_ms(fn, reps: int) -> float:
 FLUSH_BYTES = 64 << 20
 
 
-def device_ms(fn, kernels: tuple[str, ...], reps: int) -> float | None:
+def device_ms(fn, kernels: tuple[str, ...], reps: int
+              ) -> tuple[float | None, float]:
     """Device time per call of ``fn`` of the CUDA kernels whose names
     contain one of ``kernels``, from ``torch.profiler``, with the L2 cache
     flushed before every call (a request finds the mirror cold): the
-    kernels' own duration without the host's side of the call. None where
-    the profiler records no device time for them."""
+    kernels' own duration without the host's side of the call. Each kernel
+    function the profiler names launches once per call (K4's two passes
+    and its scan; K1-K3's and K5's one kernel), so the time is the sum of
+    their mean durations per launch: late in a long process the profiler
+    keeps only some of the records, and a sum over the records would fall
+    short. None where it kept no record of them. Second, the records it
+    kept per call (3 for K4 and 1 for the others when none is lost)."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -167,9 +211,33 @@ def device_ms(fn, kernels: tuple[str, ...], reps: int) -> float | None:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.key_averages()
-                if any(k in ev.key for k in kernels))
-    return total / reps / 1e3 if total else None
+    matched = [ev for ev in prof.key_averages()
+               if any(k in ev.key for k in kernels)]
+    per_call = sum(ev.device_time_total / ev.count for ev in matched)
+    return (per_call / 1e3 if matched else None,
+            sum(ev.count for ev in matched) / reps)
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Time of one call of ``fn`` with the L2 cache flushed before it: a
+    CUDA event pair around each call (the flush outside it), median over
+    ``reps``. Where the host enqueues the call slower than the card runs
+    it, this is the host's time; it cross-checks the profiler's
+    ``device_ms``."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def _bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -259,7 +327,7 @@ class Case:
         want = self.plain()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
-        err = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   if g.numel() else 0 for g, w in zip(got, want))
         if err:
             raise AssertionError(f"{self.name}: kernel disagrees with plain "
@@ -268,8 +336,10 @@ class Case:
 
     def measure(self, reps: int) -> dict:
         b, by = self.bound()
+        dev_ms, records = device_ms(self.kernel, self.kernels, reps)
         return {"ms": time_ms(self.kernel, reps),
-                "device_ms": device_ms(self.kernel, self.kernels, reps),
+                "device_ms": dev_ms, "device_records": records,
+                "cold_ms": cold_ms(self.kernel, reps),
                 "plain_ms": time_ms(self.plain, max(3, reps // 4)),
                 "bound_ms": b, "bound_by": by,
                 "bound_full_ms": self.bound_full()[0]}
@@ -337,7 +407,9 @@ def describe(name: str, what: str, m: dict) -> str:
               f"{m['blocks']}" if "blocks" in m else "")
     tiles = f", tiles {m['tiles']}" if "tiles" in m else ""
     return (f"kernel {name} [{what}]: {m['ms']} ms per call back to back, "
-            f"device {m['device_ms']} ms (plain {m['plain_ms']} ms, bound "
+            f"device {m['device_ms']} ms ({m['device_records']} kernel "
+            f"records per call), one call L2-cold {m['cold_ms']} ms (plain "
+            f"{m['plain_ms']} ms, bound "
             f"{m['bound_ms']} ms by {m['bound_by']}, full-scan bound "
             f"{m['bound_full_ms']} ms){blocks}{tiles}, max_abs_err "
             f"{m['max_abs_err']}")
@@ -1064,12 +1136,663 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
         twin.close()
 
 
+# ------------------------------------------------------------------ phase f
+FANOUT_KINDS = (b"pods", b"leases", b"endpoints", b"configmaps")
+FANOUT_NAMESPACES = [b"ns-%03d" % i for i in range(40)]
+
+
+def fanout_population(n_watchers: int, n_broad: int, rng) -> list:
+    """Watcher specs ``[(wid, start, end, min_rev)]`` shaped like
+    ``bench.py``'s fan-out population (``_fanout_population``,
+    bench.py:161-186): kind/namespace prefix ranges (the informer shape),
+    about 2% single-key watches whose end is ``key + b"\\0"``, ``min_rev``
+    0-255, and ``n_broad`` unbounded watches over the whole registry. The
+    broad cohort makes the hub's interval index dense, which routes every
+    block to the matcher."""
+    specs = []
+    for w in range(n_watchers - n_broad):
+        ns = FANOUT_NAMESPACES[rng.randint(len(FANOUT_NAMESPACES))]
+        kind = FANOUT_KINDS[rng.randint(len(FANOUT_KINDS))]
+        if rng.rand() < 0.02:
+            key = b"/registry/%s/%s/obj-%05d" % (kind, ns, rng.randint(4096))
+            specs.append((w, key, key + b"\x00", int(rng.randint(0, 256))))
+        else:
+            start = b"/registry/%s/%s/" % (kind, ns)
+            end = start[:-1] + bytes([start[-1] + 1])
+            specs.append((w, start, end, int(rng.randint(0, 256))))
+    for b in range(n_broad):
+        specs.append((n_watchers - n_broad + b, b"/registry/", b"", 0))
+    return specs
+
+
+def fanout_key(rng) -> bytes:
+    return b"/registry/%s/%s/obj-%05d" % (
+        FANOUT_KINDS[rng.randint(len(FANOUT_KINDS))],
+        FANOUT_NAMESPACES[rng.randint(len(FANOUT_NAMESPACES))],
+        rng.randint(4096))
+
+
+def fanout_events(n_events: int, rev0: int, rng) -> list:
+    """Events of ``bench.py``'s ``_fanout_events`` (bench.py:189-204)."""
+    return [WatchEvent(revision=rev0 + i, key=fanout_key(rng), value=b"v")
+            for i in range(n_events)]
+
+
+def fanout_bound_ms(w: int, n_ev: int, c: int, out_bytes: int
+                    ) -> tuple[float, str]:
+    """Least time for one fan-out call: the live events (keys, revision)
+    and the watcher table (two bound rows, flag, min_rev) read once, the
+    outputs (``out_bytes``) written once, over the memory rate; or the
+    compares, two lexicographic compares of C chunks and one revision
+    compare per (watcher, live event) pair, over the vector rate."""
+    return _bound(n_ev * (4 * c + 8) + w * (8 * c + 9) + out_bytes,
+                  w * n_ev * (2 * c + 1))
+
+
+def dispatch_case(ev, n_ev: int, cols, size: int) -> Case:
+    """K4 on one packed block: (counts, idx) against the plain version."""
+    args = (*ev, n_ev, *cols, size)
+    w, c = cols[0].shape
+    return Case("fanout_dispatch",
+                lambda: fanout_kernels.fanout_dispatch(*args),
+                lambda: fanout.fanout_dispatch_plain(*args),
+                lambda: fanout_bound_ms(w, n_ev, c, 4 * w + 4 * size),
+                lambda: (None, None),
+                ("fanout_pass_kernel", "fanout_offsets_kernel"))
+
+
+def mask_case(ev, n_ev: int, cols) -> Case:
+    """K5 on one packed block: the E-major mask against the plain version
+    (rows past n_ev False)."""
+    args = (*ev, n_ev, *cols)
+    w, c = cols[0].shape
+    e = ev[0].shape[0]
+
+    def plain():
+        m = fanout.fanout_mask_range(*ev, *cols)
+        m[n_ev:] = False
+        return m
+
+    return Case("fanout_mask_range",
+                lambda: fanout_kernels.fanout_mask_range(*args), plain,
+                lambda: fanout_bound_ms(w, n_ev, c, e * w),
+                lambda: (None, None), ("fanout_mask_kernel",))
+
+
+def packed_block(specs, events, dev, width=None):
+    """A matcher's table synced to ``specs`` and ``events`` packed at its
+    width → (matcher, (keys, revs) on dev, the table's device columns,
+    slot → wid)."""
+    m = DeviceFanout(width=width, device=dev)
+    m.table.sync(specs, version=1)
+    ek, er, _epad = m._pack_events(events)
+    ws, we, wu, wr, wids, _v = m.table.device_view()
+    return m, (ek, er), (ws, we, wu, wr), wids
+
+
+def fanout_checks(case: Case, reps: int) -> dict:
+    """``case`` against its plain version (raises where they differ), then
+    measured with ``reps`` (0: not measured); the launches of its wrapper
+    over the whole check are counted."""
+    fanout_kernels.reset_launch_counts()
+    err = case.check()
+    m = case.measure(reps) if reps else {}
+    wrapper = getattr(fanout_kernels, case.name)
+    m.update(max_abs_err=err, launches=wrapper.launches)
+    return m
+
+
+def describe_fanout(what: str, m: dict) -> str:
+    timed = (f"{m['ms']} ms per call back to back, device {m['device_ms']} "
+             f"ms ({m['device_records']} kernel records per call), one call "
+             f"L2-cold {m['cold_ms']} ms (plain {m['plain_ms']} "
+             f"ms, bound {m['bound_ms']} ms by {m['bound_by']}), "
+             if "ms" in m else "")
+    return (f"kernel {what}: {timed}launches {m['launches']}, max_abs_err "
+            f"{m['max_abs_err']}")
+
+
+def pairs_of(counts, idx, wids, epad: int) -> set:
+    """(wid, event) pairs of one K4 result."""
+    total = int(counts.sum())
+    flat = idx[:total].cpu().numpy().astype(np.int64)
+    return {(int(wids[f // epad]), int(f % epad)) for f in flat}
+
+
+def oracle_pairs(events, specs) -> set:
+    mask = match_oracle(events, specs)
+    return {(specs[j][0], i) for i, j in zip(*np.nonzero(mask))}
+
+
+def edge_block(rng):
+    """Phase (f)(iii): specs and events of the match rule's edges on a
+    population of 600 (i)-shaped watchers, with 700 more to be freed."""
+    base = b"/registry/pods/ns-001/obj-00007"
+    specs = fanout_population(1300, 30, rng)
+    wid = 2000
+    edges = [
+        (base, base + b"9", 0),                   # an event key == start
+        (b"/registry/pods/", base, 0),            # an event key == end
+        (base, base + b"\x00", 0),                # NUL-bound single key
+        (base + b"\x00", b"", 0),                 # strictly after base
+        (b"/registry/", b"", 501),                # rev == min_rev
+        (b"/registry/", b"", 502),                # rev == min_rev - 1
+    ]
+    specs += [(wid + i, s, e, r) for i, (s, e, r) in enumerate(edges)]
+    events = fanout_events(93, 400, rng)
+    events += [WatchEvent(revision=501, key=base),
+               WatchEvent(revision=502, key=base + b"0"),
+               WatchEvent(revision=503, key=base + b"9")]
+    return specs, events
+
+
+def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
+                        seed: int) -> dict:
+    """Phase (f) kernel cases (i)-(iv): K4 and K5 against the plain
+    version, bit for bit."""
+    rng = np.random.RandomState(seed)
+    out = {}
+
+    # (i) the bench shape
+    specs = fanout_population(n_w, n_w // 100, rng)
+    events = fanout_events(n_e, 1, rng)
+    m, ev, cols, wids = packed_block(specs, events, dev)
+    w, c = cols[0].shape
+    counts, _ = fanout.fanout_dispatch_plain(*ev, n_e, *cols, 1)
+    total = int(counts.sum())
+    size = fanout.pow2_at_least(total, 128)
+    res = fanout_checks(dispatch_case(ev, n_e, cols, size), 50)
+    res.update(pairs=total, shape=(w, n_e, c))
+    out[("fanout_dispatch", "i")] = res
+    log(describe_fanout(f"fanout_dispatch [(i) {n_w} watchers, {n_w // 100} "
+                        f"broad, W={w}, E={n_e}, C={c}, {total} pairs, size "
+                        f"{size}]", res))
+    # (iv) K5 at EVENT_BATCH and at the full block, on the legacy matcher's
+    # own table (W padded to a power of two, 128-byte keys)
+    legacy = fanout.FanoutMatcher(device=dev)
+    lcols = legacy._watcher_table(specs, version=1)
+    for n_ev in (300, n_e):
+        lev = legacy_block(events[:n_ev], dev)
+        res = fanout_checks(mask_case(lev, n_ev, lcols), 20)
+        lw, lc = lcols[0].shape
+        res.update(shape=(lw, lev[0].shape[0], lc))
+        out[("fanout_mask_range", f"iv {n_ev}")] = res
+        log(describe_fanout(f"fanout_mask_range [(iv) {n_w} watchers, "
+                            f"W={lw}, E={lev[0].shape[0]}, n_ev={n_ev}, "
+                            f"C={lc}]", res))
+    del m, ev, cols
+
+    # (ii) ten times the watchers, eight times the events
+    specs = fanout_population(big_w, big_w // 100, rng)
+    events = fanout_events(big_e, 1, rng)
+    t0 = time.perf_counter()
+    m, ev, cols, wids = packed_block(specs, events, dev)
+    packed_s = time.perf_counter() - t0
+    w, c = cols[0].shape
+    counts, _ = fanout.fanout_dispatch_plain(*ev, big_e, *cols, 1)
+    total = int(counts.sum())
+    size = fanout.pow2_at_least(total, 128)
+    res = fanout_checks(dispatch_case(ev, big_e, cols, size), 10)
+    res.update(pairs=total, shape=(w, big_e, c))
+    out[("fanout_dispatch", "ii")] = res
+    log(describe_fanout(f"fanout_dispatch [(ii) {big_w} watchers, "
+                        f"{big_w // 100} broad, W={w}, E={big_e}, C={c}, "
+                        f"{total} pairs, size {size}; table packed in "
+                        f"{packed_s:.1f} s]", res))
+    del m, ev, cols, counts
+    torch.cuda.empty_cache()
+
+    # (iii) edge cases, also held against the raw-bytes oracle
+    specs, events = edge_block(rng)
+    m, ev, cols, wids = packed_block(specs, events, dev)
+    kept = specs[700:]
+    m.table.sync(kept, version=2)   # frees 700 slots (dirty-row publish)
+    cols_kept = m.table.device_view()
+    wids = cols_kept[4]
+    cols = cols_kept[:4]
+    if int((wids < 0).sum()) < 700:
+        raise AssertionError("churn sync freed no slots")
+    epad = ev[0].shape[0]
+    n_ev = len(events)
+    counts, idx = fanout.fanout_dispatch_plain(*ev, n_ev, *cols, 1 << 16)
+    total = int(counts.sum())
+    if epad <= n_ev or pairs_of(counts, idx, wids, epad) != oracle_pairs(
+            events, kept):
+        raise AssertionError("(iii): plain dispatch differs from match_oracle")
+    for what, size in (("truncated", total // 3), ("exact", total),
+                       ("above", 2 * total)):
+        res = fanout_checks(dispatch_case(ev, n_ev, cols, size), 0)
+        out[("fanout_dispatch", f"iii {what}")] = res
+    res = fanout_checks(mask_case(ev, n_ev, cols), 0)
+    out[("fanout_mask_range", "iii")] = res
+    log(f"kernels fanout_dispatch, fanout_mask_range [(iii) edges: "
+        f"{len(kept)} live of {len(wids)} slots after churn, E={epad}, "
+        f"n_ev={n_ev}, {total} pairs; sizes {total // 3}, {total}, "
+        f"{2 * total}]: bit-identical to the plain version, which equals "
+        f"match_oracle")
+    long_key = b"/registry/pods/" + b"x" * 185
+    events = events + [WatchEvent(revision=600, key=long_key)]
+    m, ev, cols, wids = packed_block(kept, events, dev)
+    c = cols[0].shape[1]
+    if c != 64:
+        raise AssertionError(f"a 200-byte key packed at C={c}, not 64")
+    counts, idx = fanout.fanout_dispatch_plain(*ev, len(events), *cols, 1 << 16)
+    if pairs_of(counts, idx, wids, ev[0].shape[0]) != oracle_pairs(events,
+                                                                  kept):
+        raise AssertionError("(iii) C=64: plain dispatch differs from "
+                             "match_oracle")
+    out[("fanout_dispatch", "iii C=64")] = fanout_checks(
+        dispatch_case(ev, len(events), cols, int(counts.sum())), 0)
+    out[("fanout_mask_range", "iii C=64")] = fanout_checks(
+        mask_case(ev, len(events), cols), 0)
+    log(f"kernels fanout_dispatch, fanout_mask_range [(iii) a 200-byte key, "
+        f"C={c}]: bit-identical to the plain version, which equals "
+        f"match_oracle")
+    # a pinned 16-byte width (C = 4): K4's event tile is sized by its shared
+    # memory here, not by its key chunks, and a (ii)-long block spans tiles
+    specs, events = narrow_block(n_w, big_e, rng)
+    m, ev, cols, wids = packed_block(specs, events, dev, width=16)
+    c = cols[0].shape[1]
+    counts, _ = fanout.fanout_dispatch_plain(*ev, big_e, *cols, 1)
+    total = int(counts.sum())
+    out[("fanout_dispatch", "iii C=4")] = fanout_checks(
+        dispatch_case(ev, big_e, cols, fanout.pow2_at_least(total, 128)), 0)
+    out[("fanout_mask_range", "iii C=4")] = fanout_checks(
+        mask_case(ev, big_e, cols), 0)
+    log(f"kernels fanout_dispatch, fanout_mask_range [(iii) pinned width 16 "
+        f"bytes, C={c}, W={cols[0].shape[0]}, E={big_e}, {total} pairs]: "
+        f"bit-identical to the plain version")
+    return out
+
+
+def narrow_block(n_watchers: int, n_events: int, rng):
+    """(i)-shaped specs and events whose keys fit a 16-byte packed width:
+    ``/p/nNN/oNNNN`` under 40 namespace prefixes, 2% single-key watches
+    (NUL-bound end), 1% unbounded over ``/p/``, ``min_rev`` 0-255."""
+    specs = []
+    for w in range(n_watchers):
+        ns = b"/p/n%02d/" % rng.randint(40)
+        roll = rng.rand()
+        if roll < 0.01:
+            specs.append((w, b"/p/", b"", 0))
+        elif roll < 0.03:
+            key = ns + b"o%04d" % rng.randint(4096)
+            specs.append((w, key, key + b"\x00", int(rng.randint(0, 256))))
+        else:
+            specs.append((w, ns, ns[:-1] + bytes([ns[-1] + 1]),
+                          int(rng.randint(0, 256))))
+    events = [WatchEvent(revision=1 + i, key=b"/p/n%02d/o%04d" % (
+        rng.randint(40), rng.randint(4096)), value=b"v")
+        for i in range(n_events)]
+    return specs, events
+
+
+def legacy_block(events, dev):
+    """Events packed as the legacy matcher packs them: 128-byte keys, E
+    padded to a power of two of at least 8."""
+    epad = fanout.pow2_at_least(len(events), 8)
+    keys = [e.key for e in events] + [b""] * (epad - len(events))
+    revs = [e.revision for e in events] + [0] * (epad - len(events))
+    ek, _ = keyops.pack_keys(keys, keyops.KEY_WIDTH)
+    return (torch.from_numpy(flip_sign(ek)).to(dev),
+            torch.from_numpy(fanout.revisions(revs)).to(dev))
+
+
+class HubRecorder:
+    """Metrics sink for the hub and the tracer: the commit → queue lag of
+    every fan-out, the slow-consumer drops, and the seconds of each
+    tracer stage."""
+
+    def __init__(self):
+        self.lag: list[float] = []
+        self.dropped = 0
+        self.stage_s: dict[str, float] = {}
+
+    def emit_histogram(self, name, value, **tags):
+        if name == "kb.watch.lag.seconds":
+            self.lag.append(value)
+        elif "stage" in tags:
+            self.stage_s[tags["stage"]] = self.stage_s.get(tags["stage"],
+                                                           0.0) + value
+
+    def emit_counter(self, name, value=1, **tags):
+        if name == "kb.watch.dropped":
+            self.dropped += value
+
+    def emit_gauge(self, *a, **k):
+        pass
+
+    def register_gauge_fn(self, *a, **k):
+        pass
+
+    def unregister_gauge_fn(self, *a, **k):
+        pass
+
+
+class NotifyingQueue(queue.Queue):
+    """A subscriber queue (``queue.Queue``, bounded, so the hub's
+    slow-consumer drop applies unchanged) that also posts itself on its
+    consumer's ready list when an item is put: a consumer thread then
+    drains only the queues that hold items, and holds the interpreter lock
+    for time in proportion to the deliveries, not to the watchers."""
+
+    def __init__(self, maxsize: int, ready: collections.deque):
+        super().__init__(maxsize)
+        self.ready = ready
+
+    def _put(self, item):
+        super()._put(item)
+        self.ready.append(self)
+
+
+def write_load(backend, thread: int, n_ops: int, seed: int) -> list:
+    """One writer's creates, updates and deletes of kube-shaped keys in its
+    own key space (object ids = thread mod 16, so writers never collide);
+    returns the revisions it wrote."""
+    rng = random.Random(seed * 1000 + thread)
+    live: dict[bytes, int] = {}
+    revs = []
+    for _ in range(n_ops):
+        roll = rng.random()
+        if live and roll < 0.3:
+            k = rng.choice(list(live))
+            live[k] = backend.update(k, b"upd-%d" % rng.randrange(1 << 20),
+                                     live[k])
+            revs.append(live[k])
+        elif live and roll < 0.45:
+            k = rng.choice(list(live))
+            revs.append(backend.delete(k, live.pop(k))[0])
+        else:
+            while True:
+                k = b"/registry/%s/%s/obj-%05d" % (
+                    rng.choice(FANOUT_KINDS), rng.choice(FANOUT_NAMESPACES),
+                    16 * rng.randrange(256) + thread % 16)
+                if k not in live:
+                    break
+            live[k] = backend.create(k, b"new-%d" % rng.randrange(1 << 20))
+            revs.append(live[k])
+    return revs
+
+
+def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
+                n_writers: int, seed: int) -> dict:
+    """(f) end to end: register watchers, drain them from consumer threads
+    while writer threads write, and hold every watcher's events against
+    ``match_oracle`` over the hub's full event stream."""
+    hub = backend.watcher_hub
+    rng = np.random.RandomState(seed)
+    head = backend.current_revision()
+    n_consumers = 4
+    readies = [collections.deque() for _ in range(n_consumers)]
+    registered = []
+    for i, (_w, s, e, r) in enumerate(fanout_population(n_watchers, n_broad,
+                                                        rng)):
+        # a fifth start a few hundred revisions ahead: min_rev filters
+        start_rev = head + 1 + 2 * r if i % 5 == 0 else 0
+        ready = readies[i % n_consumers]
+        registered.append(backend.watch_range(
+            s, e, start_rev,
+            queue_factory=lambda maxsize, ready=ready: NotifyingQueue(maxsize,
+                                                                      ready)))
+    with hub._lock:
+        specs = [(wid, *hub._filters[wid]) for wid, _q in registered]
+    wid_of = {id(q): wid for wid, q in registered}
+
+    rec = HubRecorder()
+    hub.set_metrics(rec)
+    TRACER.configure(metrics=rec)
+    streamed: list[list] = []
+    stream_s = [0.0]
+    orig_stream = hub.stream
+
+    def recording(batch):
+        # recorded once its events are in the queues: the consumers' last
+        # sweep, after the last write is recorded, then finds all of them
+        t = time.perf_counter()
+        orig_stream(batch)
+        stream_s[0] += time.perf_counter() - t
+        streamed.append(list(batch))
+
+    hub.stream = recording
+    got: dict[int, list[int]] = {wid: [] for wid, _q in registered}
+    poisoned: list[int] = []
+    done = threading.Event()
+
+    def consume(ready):
+        # each queue posts to one consumer only, so its items are taken in
+        # order by one thread
+        while True:
+            try:
+                q = ready.popleft()
+            except IndexError:
+                # every put happened before done was set: a ready list read
+                # empty after seeing done stays empty
+                if done.is_set() and not ready:
+                    return
+                time.sleep(0.002)
+                continue
+            wid = wid_of[id(q)]
+            while True:
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None:
+                    poisoned.append(wid)
+                elif not isinstance(item, ProgressMarker):
+                    got[wid].extend(e.revision for e in item)
+
+    consumers = [threading.Thread(target=consume, args=(ready,))
+                 for ready in readies]
+    for t in consumers:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(n_writers) as pool:
+            futs = [pool.submit(write_load, backend, t, n_writes // n_writers,
+                                seed) for t in range(n_writers)]
+            written = sorted(r for f in futs for r in f.result())
+        deadline = time.monotonic() + 60
+        while not streamed or streamed[-1][-1].revision < written[-1]:
+            if time.monotonic() > deadline:
+                raise AssertionError("the hub never streamed the last write")
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+    finally:
+        done.set()
+        for t in consumers:
+            t.join(timeout=60)
+        del hub.stream
+        hub.set_metrics(None)
+        TRACER.metrics = None
+    if any(t.is_alive() for t in consumers):
+        raise AssertionError("a consumer thread did not stop")
+
+    events = [e for b in streamed for e in b]
+    revs = np.array([e.revision for e in events], dtype=np.int64)
+    if (np.diff(revs) <= 0).any():
+        raise AssertionError("the hub streamed events out of revision order")
+    if set(written) - set(revs.tolist()):
+        raise AssertionError("a write never reached the hub")
+    if poisoned or rec.dropped or hub.watcher_count() < len(registered):
+        raise AssertionError(f"watchers dropped: {len(poisoned)} poisoned, "
+                             f"{rec.dropped} counted")
+    t1 = time.perf_counter()
+    ranges = sorted({(s, e) for _w, s, e, _r in specs})
+    col = {r: j for j, r in enumerate(ranges)}
+    mask = match_oracle(events, [(j, s, e, 0) for j, (s, e) in
+                                 enumerate(ranges)])
+    delivered = 0
+    for wid, s, e, min_rev in specs:
+        want = revs[mask[:, col[(s, e)]] & (revs >= min_rev)]
+        if got[wid] != want.tolist():
+            raise AssertionError(f"watcher {wid} [{s!r}, {e!r}) min_rev "
+                                 f"{min_rev}: {len(got[wid])} events, the "
+                                 f"oracle {len(want)}")
+        delivered += len(want)
+    for wid, _q in registered:
+        backend.unwatch(wid)
+    sizes = np.array([len(b) for b in streamed])
+    return {"biggest": max(streamed, key=len), "watchers": len(specs),
+            "writes": len(written), "events": len(events), "delivered": delivered, "wall_s": wall,
+            "oracle_s": time.perf_counter() - t1, "blocks": len(streamed),
+            "stream_s": stream_s[0],
+            "block_sizes": np.percentile(sizes, [0, 50, 90, 99, 100]).tolist(),
+            "lag_p50_ms": statistics.median(rec.lag) * 1e3 if rec.lag else None,
+            "stage_s": dict(rec.stage_s)}
+
+
+def watch_phase(backend, dev, n_watchers: int, n_writes: int,
+                n_writers: int, n_broad: int, seed: int) -> dict:
+    """(f) end to end through the main Backend's DeviceFanout (K4), then
+    through a second Backend whose hub holds the legacy matcher (K5)."""
+    matcher = backend.watcher_hub._fanout_matcher
+    if not isinstance(matcher, DeviceFanout) or not backend._hub_blocks:
+        raise AssertionError("the Backend's hub has no block matcher")
+    fanout_kernels.reset_launch_counts()
+    for k in matcher.stats:
+        matcher.stats[k] = 0
+    res = watch_drive(backend, n_watchers, n_broad, n_writes, n_writers, seed)
+    launches = {"fanout_dispatch": fanout_kernels.fanout_dispatch.launches}
+    res["matcher"] = dict(matcher.stats)
+    log(f"watch [DeviceFanout]: {res['watchers']} watchers, {res['writes']} "
+        f"writes, {res['events']} events in {res['blocks']} blocks (events "
+        f"per block min/p50/p90/p99/max {res['block_sizes']}), "
+        f"{res['delivered']} deliveries in {res['wall_s']:.3f} s = "
+        f"{res['delivered'] / res['wall_s']:.0f} events/s delivered, every "
+        f"watcher equal to match_oracle (checked in {res['oracle_s']:.1f} s), "
+        f"none dropped; matcher {res['matcher']}; K4 launches "
+        f"{launches['fanout_dispatch']}; WatcherHub.stream {res['stream_s']:.3f} "
+        f"s in all, of which stage seconds {res['stage_s']}; host lag p50 "
+        f"(commit to queue) {res['lag_p50_ms']} ms")
+    if min(res["matcher"]["blocks"], res["matcher"]["dispatches"],
+           launches["fanout_dispatch"]) <= 0:
+        raise AssertionError(f"the watch path never reached K4: "
+                             f"{res['matcher']}, {launches}")
+    # K4 against the plain version on the main path's largest block, packed
+    # as the matcher packed it, against the table it matched
+    block = res.pop("biggest")
+    ev = matcher._pack_events(block)[:2]
+    cols = matcher.table.device_view()[:4]
+    w, c = cols[0].shape
+    cases = {"fanout_dispatch": fanout_checks(
+        dispatch_case(ev, len(block), cols, matcher._idx_size), 50)}
+    log(describe_fanout(f"fanout_dispatch [main path's largest block, W={w}, "
+                        f"E={ev[0].shape[0]}, n_ev={len(block)}, C={c}, size "
+                        f"{matcher._idx_size}]", cases["fanout_dispatch"]))
+
+    store = new_storage("memkv")
+    legacy = Backend(store, BackendConfig(
+        fanout_matcher=fanout.FanoutMatcher(device=dev)))
+    try:
+        fanout_kernels.reset_launch_counts()
+        small = watch_drive(legacy, max(n_watchers // 10, 400),
+                            max(n_broad, 70), max(n_writes // 10, 200),
+                            max(n_writers // 2, 2), seed + 1)
+        launches["fanout_mask_range"] = fanout_kernels.fanout_mask_range.launches
+        block = small.pop("biggest")
+        lcols = legacy.watcher_hub._fanout_matcher._cached
+        lev = legacy_block(block, dev)
+        cases["fanout_mask_range"] = fanout_checks(
+            mask_case(lev, len(block), lcols), 20)
+        w, c = lcols[0].shape
+        log(describe_fanout(f"fanout_mask_range [legacy path's largest "
+                            f"block, W={w}, E={lev[0].shape[0]}, n_ev="
+                            f"{len(block)}, C={c}]",
+                            cases["fanout_mask_range"]))
+    finally:
+        legacy.close()
+        store.close()
+    log(f"watch [FanoutMatcher]: {small['watchers']} watchers, "
+        f"{small['writes']} writes in {small['blocks']} blocks, "
+        f"{small['delivered']} deliveries, every watcher equal to "
+        f"match_oracle, none dropped; K5 launches "
+        f"{launches['fanout_mask_range']}")
+    if launches["fanout_mask_range"] <= 0:
+        raise AssertionError("the legacy watch path never reached K5")
+    res.update(launches=launches, cases=cases)
+    return res
+
+
+def routing_crossover(dev, n_watchers: int, seed: int) -> list:
+    """One block at ``n_watchers`` watchers of the (i) shape without the
+    broad cohort, so the hub's interval index serves it, for E in {1, 8,
+    64, 512}, host clock, median of 9: ``WatcherHub.stream`` of a hub
+    without a matcher (the index route), and what the hub's K4 route does
+    in its place (the spec tuples, ``DeviceFanout.deliver`` and the queue
+    puts; the map copies before them are the same on both routes), with
+    ``deliver`` alone beside it."""
+    rng = np.random.RandomState(seed)
+    specs = fanout_population(n_watchers, 0, rng)
+    matcher = DeviceFanout(device=dev)
+    hub = WatcherHub()
+    queues = {}
+    for _w, s, e, r in specs:
+        wid, q = hub.add_watcher(s, e, r)
+        queues[wid] = q
+    with hub._lock:
+        version = hub._version
+        filters = dict(hub._filters)
+
+    def via_k4(batch):
+        live = [(wid, *filters[wid]) for wid in queues]
+        for wid, evs in matcher.deliver(batch, live, version=version).items():
+            queues[wid].put_nowait(evs)
+
+    def median_ms(fn, batch) -> float:
+        ts = []
+        for _ in range(10):
+            t = time.perf_counter()
+            fn(batch)
+            ts.append(time.perf_counter() - t)
+        for q in queues.values():
+            while not q.empty():
+                q.get_nowait()
+        return statistics.median(ts[1:]) * 1e3
+
+    live = [(wid, *filters[wid]) for wid in queues]
+    rows = []
+    try:
+        for n_e in (1, 8, 64, 512):
+            batch = fanout_events(n_e, 1000, rng)
+            row = {"events": n_e, "index": median_ms(hub.stream, batch),
+                   "K4": median_ms(via_k4, batch),
+                   "deliver": median_ms(lambda b: matcher.deliver(
+                       b, live, version=version), batch)}
+            rows.append(row)
+            log(f"routing crossover [{n_watchers} watchers, E={n_e}]: K4 "
+                f"route {row['K4']:.3f} ms (DeviceFanout.deliver alone "
+                f"{row['deliver']:.3f} ms), interval index {row['index']:.3f} "
+                f"ms per block (host clock, median of 9)")
+    finally:
+        hub.close()
+    if matcher.stats["blocks"] <= 0:
+        raise AssertionError("the crossover's K4 route never reached K4")
+    return rows
+
+
+def fanout_phase(backend, dev, args) -> dict:
+    """(f): the kernel cases, the watch path end to end, the crossover."""
+    cases = fanout_kernel_phase(dev, args.watchers, args.block_events,
+                                args.big_watchers, args.big_events, args.seed)
+    watch = watch_phase(backend, dev, args.watchers, args.writes,
+                        args.writers, args.watchers // 100, args.seed)
+    crossover = routing_crossover(dev, args.watchers, args.seed)
+    return {"cases": cases, "watch": watch, "crossover": crossover}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keys", type=int, default=1_000_000)
     ap.add_argument("--kernel-keys", type=int, default=200_000)
     ap.add_argument("--kernel-revs", type=int, default=100)
+    ap.add_argument("--watchers", type=int, default=10_000)
+    ap.add_argument("--block-events", type=int, default=512)
+    ap.add_argument("--big-watchers", type=int, default=100_000)
+    ap.add_argument("--big-events", type=int, default=4096)
+    ap.add_argument("--writes", type=int, default=20_000)
+    ap.add_argument("--writers", type=int, default=16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1091,18 +1814,25 @@ def main() -> int:
     del layouts
 
     store, top = load_store(args.keys, args.seed, dev)
-    backend = Backend(store, BackendConfig())
+    backend = Backend(store, BackendConfig(
+        fanout_matcher=DeviceFanout(device=dev)))
     try:
         launches, main_cases = serve_phase(backend, store, top, dev)
         compacted = compact_phase(backend, store, top, args.keys, dev)
+        fanned = fanout_phase(backend, dev, args)
     finally:
         backend.close()
         store.close()
     launches["victim_mask"] = compacted["launches"]
     main_cases["victim_mask"] = compacted["case"]
+    launches.update(fanned["watch"]["launches"])
+    main_cases.update(fanned["watch"]["cases"])
     errs = {name: [v["max_abs_err"] for (n, _l), v in bench.items() if n == name]
             for name in ("scan_mask", "scan_mask_q")}
     errs["victim_mask"] = [v["max_abs_err"] for v in victim_bench.values()]
+    for name in ("fanout_dispatch", "fanout_mask_range"):
+        errs[name] = [v["max_abs_err"] for (n, _c), v in
+                      fanned["cases"].items() if n == name]
 
     kernels = []
     for name in SOURCES:

@@ -68,6 +68,7 @@ class BackendConfig:
     event_ring_capacity: int = EVENT_RING_CAPACITY
     enable_etcd_compatibility: bool = True  # gates Count (reference range.go:188)
     scanner_workers: int = 8
+    fanout_matcher: object | None = None  # vectorized watch matcher (fanout/)
 
 
 class Backend:
@@ -76,7 +77,11 @@ class Backend:
         self.store = store
         self.tso = TSO()
         self.watch_cache = Ring(self.config.watch_cache_capacity)
-        self.watcher_hub = WatcherHub()
+        self.watcher_hub = WatcherHub(fanout_matcher=self.config.fanout_matcher)
+        # block-batched fan-out: a matcher that matches a whole drain block
+        # in one device dispatch makes EVENT_BATCH chunking pure overhead —
+        # hand the hub the full contiguous block
+        self._hub_blocks = self.watcher_hub.prefers_blocks
         self.retry = AsyncFifoRetry(self._read_rev_record, self._retry_rewrite)
         scanner_kw = dict(
             get_compact_revision=lambda _snap: self._compact_revision_cached(),
@@ -1045,7 +1050,7 @@ class Backend:
                         self.retry.append(event)
                     elif event.valid:
                         batch.append(event)
-                    if len(batch) >= EVENT_BATCH:
+                    if len(batch) >= EVENT_BATCH and not self._hub_blocks:
                         self._flush(batch)
                         batch = []
                 self._flush(batch)
@@ -1063,7 +1068,10 @@ class Backend:
                 if self._closed:
                     return
                 idx = self._next_rev % self._ring_cap
-                if self._ring[idx] is None:
+                # while another thread drains, its re-check loop takes what
+                # is ready: calling _drain then only returns at once, and
+                # looping on it would spin against the drainer
+                if self._ring[idx] is None or self._draining:
                     self._ring_cond.wait(timeout=0.2)
                     # wait() reacquired the condition: the post-wait close
                     # check rides the SAME hold — the bare re-read outside

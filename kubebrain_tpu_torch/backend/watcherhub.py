@@ -9,8 +9,14 @@ the pipeline — the same protocol etcd uses for its watch streams.
 
 Filters are key *ranges* [start, end) + a minimum revision (etcd watch
 semantics; a prefix watch is [p, prefix_end(p)), a single-key watch is
-[k, k+\\0)). Matching runs on the host: an interval-stabbing index over the
-watcher ranges for large populations, a linear filter otherwise.
+[k, k+\\0)). The hot part of fan-out — deciding which watchers match an
+event batch — can be offloaded: ``kubebrain_tpu_torch.fanout.DeviceFanout``
+matches a whole drain block against every watcher on the card (K4, no
+[E, W] mask), the legacy ``ops.fanout.FanoutMatcher`` computes the
+(events × watchers) mask. The hub routes to a matcher when the batch ×
+watcher product is large or the population too nested for its
+interval-stabbing index (BASELINE config 3: 10k watchers × 1k ev/s);
+otherwise it matches on the host.
 """
 
 from __future__ import annotations
@@ -56,13 +62,13 @@ class _RangeIndex:
 
     Degenerate (heavily nested) populations could make the per-segment lists
     big; ``dense`` flags when average coverage explodes so the caller can
-    fall back to linear filtering.
+    fall back to the vectorized matcher.
     """
 
     __slots__ = ("_bounds", "_cover", "dense")
 
     # average covering-watchers-per-segment beyond which the index is worse
-    # than linear filtering; construction aborts early at this point so a
+    # than vectorized matching; construction aborts early at this point so a
     # degenerate population (e.g. thousands of unbounded from-key watches)
     # never pays the O(W^2) segment-list materialization
     DENSE_COVER = 64
@@ -96,7 +102,7 @@ class _RangeIndex:
             total_cover += len(active)
             if len(cover) >= 64 and total_cover > self.DENSE_COVER * len(cover):
                 # too nested to index: abandon construction (lookup must not
-                # be used — the hub falls back to linear filtering)
+                # be used — the hub falls back to matcher / linear filtering)
                 self.dense = True
                 break
         self._bounds = bounds
@@ -110,13 +116,30 @@ class _RangeIndex:
 
 
 class WatcherHub:
-    def __init__(self):
+    #: pairs (watchers × events) from which a batch goes to a matcher on a
+    #: CUDA device even when the interval index could serve it. The value is
+    #: the JAX package's, chosen for a TPU; the H100's crossover is measured
+    #: by ``chip_smoke.py`` (PERF.md) and the value is kept until a measured
+    #: change moves it.
+    DEVICE_PAIRS = 1_000_000
+
+    def __init__(self, fanout_matcher: Callable | None = None):
         self._lock = threading.Lock()
         self._next_id = 0
         self._subs: dict[int, queue.Queue] = {}
         # id -> (start, end, min_revision); end == b"" means unbounded
         self._filters: dict[int, tuple[bytes, bytes, int]] = {}
-        # watcher-set version: invalidates the interval index in O(1)
+        # Optional vectorized matcher:
+        # (events, [(id, start, end, min_rev)], version=) -> bool[E][W]
+        self._fanout_matcher = fanout_matcher
+        # Block protocol (kubebrain_tpu_torch.fanout.DeviceFanout): the
+        # matcher demuxes on its own — deliver(batch, specs, version) ->
+        # {wid: evs} — so the hub never materializes the [E, W] mask at all
+        self._matcher_delivers = callable(getattr(fanout_matcher, "deliver",
+                                                  None))
+        # watcher-set version: invalidates the interval index in O(1) and
+        # lets the matcher cache its packed table with an O(1) check instead
+        # of an O(W) spec-tuple compare per batch
         self._version = 0
         # lazily (re)built interval index for host-side matching
         self._index: _RangeIndex | None = None
@@ -124,6 +147,14 @@ class WatcherHub:
         # optional metrics sink (set_metrics): commit->delivery lag histogram
         # + per-watcher backlog gauges
         self._metrics = None
+
+    @property
+    def prefers_blocks(self) -> bool:
+        """True when the matcher wants WHOLE sequencer drain blocks: the
+        backend then skips the EVENT_BATCH chunking in ``_drain`` so one
+        contiguous revision block costs one device dispatch, not
+        ceil(block / EVENT_BATCH)."""
+        return bool(getattr(self._fanout_matcher, "prefers_blocks", False))
 
     def set_metrics(self, metrics) -> None:
         """Arm watch-path lag instrumentation: ``kb.watch.lag.seconds``
@@ -277,12 +308,19 @@ class WatcherHub:
         with self._lock:
             return list(self._subs)
 
+    def _matcher_on_cuda(self) -> bool:
+        """The matcher runs on a CUDA device (the JAX package asks whether
+        its global backend is a TPU; here the matcher's own device decides,
+        so a CPU matcher routes as the JAX package routes on a CPU)."""
+        dev = getattr(self._fanout_matcher, "device", None)
+        return getattr(dev, "type", None) == "cuda"
+
     def stream(self, batch: list[WatchEvent]) -> None:
         """Push one batch to every matching subscriber; drop the slow.
 
         Reference watcherhub.go:78-100. Per-watcher filtering (range +
-        min-revision) happens here rather than in each consumer thread, so
-        one pass over the batch serves every watcher.
+        min-revision) happens here rather than in each consumer thread so a
+        vectorized matcher can compute the whole (E × W) match at once.
         """
         if not batch:
             return
@@ -299,10 +337,41 @@ class WatcherHub:
                 self._index = _RangeIndex(filters)
                 self._index_version = version
             index = self._index
-            if index.dense:
-                index = None  # too nested to index: linear filter
+            if index.dense and self._fanout_matcher is None:
+                index = None  # aborted build, no kernel either: linear filter
 
-        if index is not None:
+        # the kernel beats the index only where the card makes the (E x W)
+        # match cheap: big batches on a CUDA matcher, or populations too
+        # nested for the index. A CPU matcher loses to the index at every
+        # realistic batch.
+        use_device = self._fanout_matcher is not None and (
+            (self._matcher_on_cuda()
+             and len(subs) * len(batch) >= self.DEVICE_PAIRS)
+            or (index is not None and index.dense)
+            or (index is None and len(subs) * len(batch) >= 4096)
+        )
+        if use_device and self._matcher_delivers:
+            # block protocol: sync + one dispatch + vectorized demux inside
+            # the matcher; the hub only routes the per-watcher lists
+            watcher_specs = [(wid, *filters[wid]) for wid, _ in subs]
+            per_watcher = self._fanout_matcher.deliver(
+                batch, watcher_specs, version=version)
+        elif use_device:
+            import numpy as np
+
+            watcher_specs = [(wid, *filters[wid]) for wid, _ in subs]
+            mask = np.asarray(
+                self._fanout_matcher(batch, watcher_specs, version=version)
+            )  # bool[E, W]
+            # deliver ∝ matches, not E*W: most watchers match nothing in a
+            # given batch, so only touch columns with hits
+            col_hits = np.nonzero(mask.any(axis=0))[0]
+            per_watcher = {}
+            for w in col_hits:
+                wid = subs[int(w)][0]
+                rows = np.nonzero(mask[:, w])[0]
+                per_watcher[wid] = [batch[int(e)] for e in rows]
+        elif index is not None:
             # interval-stabbing: cost ∝ events x matches, independent of W.
             # Group by cover tuple first so the watchers of one namespace
             # SHARE one event-list object (20 watchers x N events used to

@@ -68,7 +68,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_every_cuda_source_is_compiled_for_sm_90a():
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "compact_victims", "scan_visibility"]
+        "compact_victims", "fanout_match", "scan_visibility"]
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 

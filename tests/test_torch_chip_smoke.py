@@ -5,12 +5,13 @@ rehearsal counts a launch where a wrapper calls its plain version, on the
 wrapper's own counter, and stubs the CUDA clock, the profiler and
 synchronisation. The wrappers compute the kernels' own algorithms in place
 of the plain versions (K1/K2's block-classified
-``scan.visibility_mask_blocked``, K3's tiled ``compact.victim_mask_tiled``),
-so every check of the script holds those algorithms against the plain
+``scan.visibility_mask_blocked``, K3's tiled ``compact.victim_mask_tiled``,
+K4's count → offsets → ranked write ``fanout.fanout_dispatch_ranked``), so
+every check of the script holds those algorithms against the plain
 version. What it checks is the script's control flow: every comparison it
-makes against the plain versions and the host ``Scanner``, the launch
-checks, and the compaction against the twin store. It measures nothing on a
-device.
+makes against the plain versions, the host ``Scanner`` and
+``match_oracle``, the launch and routing checks, and the compaction against
+the twin store. It measures nothing on a device.
 
 Run as a script, it rehearses at a chosen size and prints each phase's
 host seconds (CPU numbers, not device metrics)::
@@ -31,11 +32,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from kubebrain_tpu_torch.ops import compact as tcompact  # noqa: E402
+from kubebrain_tpu_torch.fanout import DeviceFanout  # noqa: E402
 from kubebrain_tpu_torch.ops import compact_kernels, scan_kernels  # noqa: E402
+from kubebrain_tpu_torch.ops import fanout as tfanout  # noqa: E402
+from kubebrain_tpu_torch.ops import fanout_kernels  # noqa: E402
 from kubebrain_tpu_torch.ops import keys as keyops  # noqa: E402
 from kubebrain_tpu_torch.ops import scan as tscan  # noqa: E402
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread, so that the test
+    run's parallel workers do not oversubscribe the cores (with every
+    worker's threads spinning, a small op can take a hundred times
+    longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _HostEvent:
@@ -59,7 +75,9 @@ def cpu_shims(setattr_) -> None:
     setattr_(torch.cuda, "synchronize", lambda *a: None)
     setattr_(torch.cuda, "Event", _HostEvent)
     setattr_(torch.cuda, "empty_cache", lambda: None)
-    setattr_(chip_smoke, "device_ms", lambda fn, kernels, reps: (fn(), None)[1])
+    setattr_(chip_smoke, "device_ms",
+             lambda fn, kernels, reps: (fn(), (None, 0.0))[1])
+    setattr_(chip_smoke, "cold_ms", lambda fn, reps: chip_smoke.time_ms(fn, 1))
 
     def victim_mask(*args):
         compact_kernels.victim_mask_batch.launches += 1
@@ -74,20 +92,32 @@ def cpu_shims(setattr_) -> None:
         return tscan.visibility_mask_blocked(keys_t, revs, tomb, nv, starts,
                                              ends, unb, rrevs)
 
+    def fanout_dispatch(*args):
+        fanout_kernels.fanout_dispatch.launches += 1
+        return tfanout.fanout_dispatch_ranked(*args)
+
+    def fanout_mask_range(*args):
+        fanout_kernels.fanout_mask_range.launches += 1
+        return tfanout.fanout_mask_range(*args)
+
     setattr_(compact_kernels, "compact",
              types.SimpleNamespace(victim_mask=victim_mask))
     setattr_(scan_kernels, "scan",
              types.SimpleNamespace(visibility_mask=visibility_mask))
+    plain = {k: v for k, v in vars(tfanout).items() if not k.startswith("__")}
+    setattr_(fanout_kernels, "fanout", types.SimpleNamespace(**{
+        **plain, "fanout_dispatch_plain": fanout_dispatch,
+        "fanout_mask_range": fanout_mask_range}))
 
 
 @pytest.fixture
 def shims(monkeypatch):
     cpu_shims(monkeypatch.setattr)
-    scan_kernels.reset_launch_counts()
-    compact_kernels.reset_launch_counts()
+    for mod in (scan_kernels, compact_kernels, fanout_kernels):
+        mod.reset_launch_counts()
     yield
-    scan_kernels.reset_launch_counts()
-    compact_kernels.reset_launch_counts()
+    for mod in (scan_kernels, compact_kernels, fanout_kernels):
+        mod.reset_launch_counts()
 
 
 def test_kernel_phases(shims):
@@ -191,12 +221,82 @@ def test_off_device_guard_fails(moved):
         chip_smoke.stayed_on_device(scanner, 1, "faulty")
 
 
+def test_fanout_kernel_cases(shims):
+    """Phase (f) kernel cases (i)-(iv): K4's ranked algorithm and K5 agree
+    with the plain version, the edge cases with match_oracle (and the
+    pinned 16-byte width, C = 4, with the plain version), and every case
+    counts its launches."""
+    cases = chip_smoke.fanout_kernel_phase(CPU, 300, 512, 700, 128, seed=0)
+    assert len(cases) == 12
+    for (name, what), m in cases.items():
+        assert m["max_abs_err"] == 0 and m["launches"] > 0, (name, what)
+    for what in ("i", "ii"):
+        m = cases[("fanout_dispatch", what)]
+        assert m["pairs"] > 0 and 0 < m["bound_ms"] and "device_ms" in m
+
+
+def _watch_backend():
+    store = chip_smoke.new_storage("cuda", inner="memkv", device=CPU)
+    return store, chip_smoke.Backend(store, chip_smoke.BackendConfig(
+        fanout_matcher=DeviceFanout(device=CPU)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_watch_phase_routes_to_the_matcher_and_drops_nobody(shims, seed):
+    """Phase (f) end to end at 300 watchers (70 broad: the hub's index is
+    dense, so every block goes to the matcher): every watcher's events
+    equal match_oracle, none is dropped, the blocks reach K4 (and the
+    legacy drive K5), and blocks hold more than one event."""
+    store, backend = _watch_backend()
+    try:
+        res = chip_smoke.watch_phase(backend, CPU, 300, 480, 4, 70, seed)
+    finally:
+        backend.close()
+        store.close()
+    assert res["matcher"]["blocks"] > 0 and res["matcher"]["dispatches"] > 0
+    assert min(res["launches"].values()) > 0
+    assert res["delivered"] > res["events"] > 0
+    assert res["block_sizes"][-1] > 1
+    assert all(m["max_abs_err"] == 0 for m in res["cases"].values())
+    assert res["stage_s"].get("fanout_dispatch", 0) > 0
+
+
+def test_watch_phase_catches_a_lost_delivery(shims, monkeypatch):
+    """A K4 that loses the last match of every block fails the end-to-end
+    comparison with match_oracle: it has teeth."""
+    def lossy(*args):
+        counts, idx = tfanout.fanout_dispatch_plain(*args)
+        hit = counts.nonzero()
+        if len(hit):
+            counts[hit[-1]] -= 1
+        return counts, idx
+
+    monkeypatch.setattr(fanout_kernels, "fanout", types.SimpleNamespace(
+        **{**vars(fanout_kernels.fanout), "fanout_dispatch_plain": lossy}))
+    store, backend = _watch_backend()
+    try:
+        with pytest.raises(AssertionError, match="oracle"):
+            chip_smoke.watch_drive(backend, 200, 70, 120, 2, 0)
+    finally:
+        backend.close()
+        store.close()
+
+
+def test_routing_crossover_rows(shims):
+    rows = chip_smoke.routing_crossover(CPU, 200, 0)
+    assert [r["events"] for r in rows] == [1, 8, 64, 512]
+    assert all(r["K4"] > 0 and r["index"] > 0 for r in rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--keys", type=int, default=100_000)
     ap.add_argument("--kernel-keys", type=int, default=2000)
     ap.add_argument("--kernel-revs", type=int, default=10)
+    ap.add_argument("--watchers", type=int, default=2000)
+    ap.add_argument("--writes", type=int, default=4000)
+    ap.add_argument("--writers", type=int, default=8)
     args = ap.parse_args()
     cpu_shims(setattr)
     t0 = time.perf_counter()
@@ -214,8 +314,19 @@ def main() -> int:
     finally:
         backend.close()
         store.close()
+    store, backend = _watch_backend()
+    try:
+        chip_smoke.fanout_kernel_phase(CPU, args.watchers, 128, 2 * args.watchers,
+                                       256, args.seed)
+        chip_smoke.watch_phase(backend, CPU, args.watchers, args.writes,
+                               args.writers, 70, args.seed)
+        chip_smoke.routing_crossover(CPU, args.watchers, args.seed)
+        t4 = time.perf_counter()
+    finally:
+        backend.close()
+        store.close()
     print(f"host seconds on the CPU: kernel phases {t1 - t0}, load and serve "
-          f"{t2 - t1}, compaction phase {t3 - t2}")
+          f"{t2 - t1}, compaction phase {t3 - t2}, fan-out phase {t4 - t3}")
     return 0
 
 
