@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--keys 1000000]
                           [--kernel-keys 200000] [--kernel-revs 100]
+    python3 chip_smoke.py --watch-ab DIR [--watchers 10000] [--writes 20000]
 
 Phases, in the order they run (any failure exits non-zero and prints no
 result line):
@@ -61,24 +62,41 @@ result line):
     merge, publish) are printed; then K3's mask and counts are held against
     the plain version on the inputs the compaction gave it.
 (f) watch fan-out on the main path, same Backend (built with
-    ``BackendConfig(fanout_matcher=DeviceFanout())``). First the kernels:
-    K4 (``fanout_dispatch``: counts and compacted indices) and K5
+    ``BackendConfig(fanout_matcher=DeviceFanout())``). First the kernels,
+    which match in the rank space of the watcher table's rank index: K4
+    (``fanout_dispatch``: counts and compacted indices) and K5
     (``fanout_mask_range``: the legacy E-major mask) must be bit-identical
-    to the plain version on (i) ``bench.py``'s fan-out population (10,000
+    to the plain version by chunk compares, which the plain version in rank
+    space must equal too, on (i) ``bench.py``'s fan-out population (10,000
     watchers, 100 broad) x 512 events, C = 16; (ii) the same generator at
     100,000 watchers (1,000 broad) x 4,096 events; (iii) the edge cases
     (event keys equal to a start and to an end, a NUL-bound single key,
     revisions at and one below min_rev, n_ev < E, slots freed by a churn
-    sync, a size below the total, a 200-byte key that makes C = 64), also
-    held against ``match_oracle``, and a block of 4,096 events at a pinned
-    16-byte width (C = 4); (iv) K5 at 10,000 x 300 and x 512.
+    sync, which updates the index, a size below the total, a 200-byte key
+    that makes C = 64), also held against ``match_oracle``, and a block of
+    4,096 events at a pinned 16-byte width (C = 4); (iv) K5 at 10,000 x 300
+    and x 512; (v) 64 watchers x ``--deep-events`` (40,000; E = 65,536)
+    and (vi) 10,000 watchers x half as many (E = 32,768, past 16,384 and
+    within the int32 flat index of 10,240 slots). (i), (ii), (iv), (v) and
+    (vi) are also held against ``match_oracle`` for every watcher or a
+    seeded sample of 256. (i) and (ii) also time the rank index's rebuild
+    and the table's publication after one watcher-set change of each kind
+    (a re-watch of the same range, a single-key watch of a new key, a
+    ``min_rev`` change), then hold K4 on the churned table against the
+    plain versions ((i) also against ``match_oracle``). A measured case
+    whose profile keeps no record of its kernels fails (after two
+    retries).
     Then end to end: ``--watchers`` watchers of the (i) shape registered
     through ``Backend.watch_range`` (a fifth of them starting a few hundred
     revisions ahead), drained by consumer threads, while ``--writers``
-    threads write ``--writes`` creates, updates and deletes. Every
-    watcher's events must equal ``match_oracle`` over the hub's full event
-    stream, in revision order, none dropped; the matcher's blocks and
-    dispatches and K4's launches must all be > 0. The same drive at a
+    threads write ``--writes`` creates, updates and deletes, and watchers
+    are re-established at client-go's informer rate (each watcher every
+    450 seconds on average: a cohort of extra watchers, the oldest
+    unwatched and a new one registered from the next revision).
+    Every watcher's events must equal ``match_oracle`` over the hub's full
+    event stream, in revision order, none dropped, and every churned
+    watcher's the oracle's first from its start revision; the matcher's
+    blocks and dispatches and K4's launches must all be > 0. The same drive at a
     tenth of the size runs a second Backend whose hub holds the legacy
     ``FanoutMatcher`` (K5's launches > 0). Last, the routing crossover: one
     block at 10,000 watchers without the broad cohort (the hub's interval
@@ -92,11 +110,17 @@ included where it is the longer), its device time from ``torch.profiler``
 with the L2 cache flushed before each call (and the kernel records the
 profiler kept per call), the plain version's time, its
 bound (the valid rows inside the queries' ranges for K1/K2, inside the
-compaction's [start, end) for K3) and the full-scan bound of every valid
-row.
+compaction's [start, end) for K3; for K4/K5 the least work of rank space,
+three compares per pair and the rank searches) and the full-scan bound of
+every valid row (for K4/K5 the compare bound, 2C + 1 compares per pair).
 
 Output, last three lines: the kernels JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
+
+``--watch-ab DIR`` runs only the watch drive on an empty store, through
+the package of checkout DIR and through this one in turns (DIR, this,
+this, DIR), each in a process of its own: one JSON line per run, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -114,6 +138,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -125,6 +150,7 @@ from kubebrain_tpu_torch.backend.scanner import EVENTS_TTL_SECONDS, Scanner
 from kubebrain_tpu_torch.backend.watcherhub import ProgressMarker, WatcherHub
 from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
 from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
+from kubebrain_tpu_torch.fanout.dispatch import max_block_events
 from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
 from kubebrain_tpu_torch.ops import scan, scan_kernels
 from kubebrain_tpu_torch.ops import keys as keyops
@@ -214,6 +240,10 @@ def device_ms(fn, kernels: tuple[str, ...], reps: int
     matched = [ev for ev in prof.key_averages()
                if any(k in ev.key for k in kernels)]
     per_call = sum(ev.device_time_total / ev.count for ev in matched)
+    if len(matched) > 1:
+        log("device ms per launch: " + ", ".join(
+            f"{next(k for k in kernels if k in ev.key)} "
+            f"{ev.device_time_total / ev.count / 1e3}" for ev in matched))
     return (per_call / 1e3 if matched else None,
             sum(ev.count for ev in matched) / reps)
 
@@ -312,13 +342,16 @@ class Case:
     comparison between them and the bounds of the work (callables, computed
     when the case is measured)."""
 
-    def __init__(self, name, kernel, plain, bound, bound_full, kernels):
+    def __init__(self, name, kernel, plain, bound, bound_full, kernels,
+                 also_plain=None):
         self.name = name
         self.kernel = kernel
         self.plain = plain
         self.bound = bound
         self.bound_full = bound_full
         self.kernels = kernels  # CUDA kernel names the profiler reports
+        # a second plain version the first must equal (K4/K5: rank space)
+        self.also_plain = also_plain
 
     def check(self) -> int:
         """Max |kernel - plain| over every output (must be 0)."""
@@ -332,11 +365,25 @@ class Case:
         if err:
             raise AssertionError(f"{self.name}: kernel disagrees with plain "
                                  f"(max abs err {err})")
+        if self.also_plain is not None:
+            other = self.also_plain()
+            if isinstance(other, torch.Tensor):
+                other = (other,)
+            if not all(torch.equal(a, b) for a, b in zip(want, other)):
+                raise AssertionError(f"{self.name}: the plain versions "
+                                     f"disagree")
         return err
 
     def measure(self, reps: int) -> dict:
         b, by = self.bound()
         dev_ms, records = device_ms(self.kernel, self.kernels, reps)
+        for more in (2, 4):  # the profiler drops records late in a process
+            if records > 0:
+                break
+            dev_ms, records = device_ms(self.kernel, self.kernels, more * reps)
+        if records <= 0:
+            raise AssertionError(f"{self.name}: the profiler kept no record "
+                                 f"of {self.kernels}")
         return {"ms": time_ms(self.kernel, reps),
                 "device_ms": dev_ms, "device_records": records,
                 "cold_ms": cold_ms(self.kernel, reps),
@@ -1180,33 +1227,62 @@ def fanout_events(n_events: int, rev0: int, rng) -> list:
 
 def fanout_bound_ms(w: int, n_ev: int, c: int, out_bytes: int
                     ) -> tuple[float, str]:
-    """Least time for one fan-out call: the live events (keys, revision)
-    and the watcher table (two bound rows, flag, min_rev) read once, the
-    outputs (``out_bytes``) written once, over the memory rate; or the
-    compares, two lexicographic compares of C chunks and one revision
-    compare per (watcher, live event) pair, over the vector rate."""
+    """The compare bound of the chunk-compare design (kept so that its
+    rows stay comparable): the live events (keys, revision) and the
+    watcher table (two bound rows, flag, min_rev) read once, the outputs
+    (``out_bytes``) written once, over the memory rate; or the compares,
+    two lexicographic compares of C chunks and one revision compare per
+    (watcher, live event) pair, over the vector rate. Rank space does less
+    work than this."""
     return _bound(n_ev * (4 * c + 8) + w * (8 * c + 9) + out_bytes,
                   w * n_ev * (2 * c + 1))
 
 
-def dispatch_case(ev, n_ev: int, cols, size: int) -> Case:
-    """K4 on one packed block: (counts, idx) against the plain version."""
+def fanout_least_bound_ms(w: int, n_ev: int, c: int, n_u: int,
+                          out_bytes: int) -> tuple[float, str]:
+    """Least time for one fan-out call in rank space: the live events
+    (keys, revision), the table's rank index (rows of ``U``, each slot's
+    two ranks) and its flag and min_rev read once, the outputs
+    (``out_bytes``) written once, over the memory rate; or 3 compares per
+    (watcher, live event) pair plus the rank searches, log2(n_u) steps of
+    C chunk compares per live event, over the vector rate."""
+    steps = max(n_u, 1).bit_length()
+    return _bound(n_ev * (4 * c + 8) + n_u * 4 * c + w * 17 + out_bytes,
+                  3 * w * n_ev + n_ev * steps * c)
+
+
+def share(m: dict) -> float | None:
+    """The bound's share of the device time (at most 1)."""
+    if m.get("device_ms"):
+        return m["bound_ms"] / m["device_ms"]
+    return None
+
+
+def dispatch_case(ev, n_ev: int, cols, size: int, index) -> Case:
+    """K4 on one packed block with the table's rank index: (counts, idx)
+    against the plain version by chunk compares, which the emulation of
+    K4's kernels in rank space must equal too."""
     args = (*ev, n_ev, *cols, size)
     w, c = cols[0].shape
+    n_u = index.rows.shape[0]
     return Case("fanout_dispatch",
-                lambda: fanout_kernels.fanout_dispatch(*args),
+                lambda: fanout_kernels.fanout_dispatch(*args, index=index),
                 lambda: fanout.fanout_dispatch_plain(*args),
+                lambda: fanout_least_bound_ms(w, n_ev, c, n_u,
+                                              4 * w + 4 * size),
                 lambda: fanout_bound_ms(w, n_ev, c, 4 * w + 4 * size),
-                lambda: (None, None),
-                ("fanout_pass_kernel", "fanout_offsets_kernel"))
+                ("fanout_rank_kernel", "fanout_match_kernel"),
+                lambda: fanout.fanout_dispatch_ranked(*args, index=index))
 
 
-def mask_case(ev, n_ev: int, cols) -> Case:
-    """K5 on one packed block: the E-major mask against the plain version
-    (rows past n_ev False)."""
+def mask_case(ev, n_ev: int, cols, index) -> Case:
+    """K5 on one packed block with the table's rank index: the E-major
+    mask against the plain version by chunk compares (rows past n_ev
+    False), which the plain version in rank space must equal too."""
     args = (*ev, n_ev, *cols)
     w, c = cols[0].shape
     e = ev[0].shape[0]
+    n_u = index.rows.shape[0]
 
     def plain():
         m = fanout.fanout_mask_range(*ev, *cols)
@@ -1214,20 +1290,23 @@ def mask_case(ev, n_ev: int, cols) -> Case:
         return m
 
     return Case("fanout_mask_range",
-                lambda: fanout_kernels.fanout_mask_range(*args), plain,
+                lambda: fanout_kernels.fanout_mask_range(*args, index=index),
+                plain,
+                lambda: fanout_least_bound_ms(w, n_ev, c, n_u, e * w),
                 lambda: fanout_bound_ms(w, n_ev, c, e * w),
-                lambda: (None, None), ("fanout_mask_kernel",))
+                ("fanout_rank_kernel", "fanout_mask_kernel"),
+                lambda: fanout.fanout_mask_rank_plain(*args, index=index))
 
 
 def packed_block(specs, events, dev, width=None):
     """A matcher's table synced to ``specs`` and ``events`` packed at its
     width → (matcher, (keys, revs) on dev, the table's device columns,
-    slot → wid)."""
+    its rank index, slot → wid)."""
     m = DeviceFanout(width=width, device=dev)
     m.table.sync(specs, version=1)
     ek, er, _epad = m._pack_events(events)
-    ws, we, wu, wr, wids, _v = m.table.device_view()
-    return m, (ek, er), (ws, we, wu, wr), wids
+    ws, we, wu, wr, index, wids, _v = m.table.ranked_view()
+    return m, (ek, er), (ws, we, wu, wr), index, wids
 
 
 def fanout_checks(case: Case, reps: int) -> dict:
@@ -1239,14 +1318,20 @@ def fanout_checks(case: Case, reps: int) -> dict:
     m = case.measure(reps) if reps else {}
     wrapper = getattr(fanout_kernels, case.name)
     m.update(max_abs_err=err, launches=wrapper.launches)
+    if "ms" in m:
+        m["share"] = share(m)
+        if m["share"] is not None and m["share"] > 1:
+            raise AssertionError(f"{case.name}: a share of "
+                                 f"{m['share']} of its bound")
     return m
 
 
 def describe_fanout(what: str, m: dict) -> str:
     timed = (f"{m['ms']} ms per call back to back, device {m['device_ms']} "
              f"ms ({m['device_records']} kernel records per call), one call "
-             f"L2-cold {m['cold_ms']} ms (plain {m['plain_ms']} "
-             f"ms, bound {m['bound_ms']} ms by {m['bound_by']}), "
+             f"L2-cold {m['cold_ms']} ms (plain {m['plain_ms']} ms, bound "
+             f"{m['bound_ms']} ms by {m['bound_by']}, share {m['share']}; "
+             f"compare bound {m['bound_full_ms']} ms), "
              if "ms" in m else "")
     return (f"kernel {what}: {timed}launches {m['launches']}, max_abs_err "
             f"{m['max_abs_err']}")
@@ -1262,6 +1347,104 @@ def pairs_of(counts, idx, wids, epad: int) -> set:
 def oracle_pairs(events, specs) -> set:
     mask = match_oracle(events, specs)
     return {(specs[j][0], i) for i, j in zip(*np.nonzero(mask))}
+
+
+#: watchers of a kernel case held against match_oracle (all of them in a
+#: smaller case): the oracle is brute force in Python
+ORACLE_WATCHERS = 256
+
+
+def check_oracle(case: Case, events, specs, wids, epad: int, seed: int) -> int:
+    """K4's or K5's result on ``case`` against ``match_oracle`` for every
+    watcher of ``specs`` or a seeded sample of ``ORACLE_WATCHERS`` of them,
+    over every event (raises where they differ); the pairs compared."""
+    rng = np.random.RandomState(seed)
+    pick = (specs if len(specs) <= ORACLE_WATCHERS else
+            [specs[i] for i in rng.choice(len(specs), ORACLE_WATCHERS,
+                                          replace=False)])
+    want = oracle_pairs(events, pick)
+    keep = {wid for wid, *_r in pick}
+    got = case.kernel()
+    if case.name == "fanout_dispatch":
+        pairs = pairs_of(got[0], got[1], wids, epad)
+    else:
+        slot_of = {int(wid): s for s, wid in enumerate(wids)}
+        cols = torch.tensor([slot_of[wid] for wid in sorted(keep)])
+        sub = got[:len(events)].cpu()[:, cols].numpy()
+        pairs = {(sorted(keep)[j], i) for i, j in zip(*np.nonzero(sub))}
+    got_pairs = {p for p in pairs if p[0] in keep}
+    if got_pairs != want:
+        raise AssertionError(f"{case.name}: {len(got_pairs ^ want)} pairs "
+                             f"differ from match_oracle")
+    return len(pick) * len(events)
+
+
+def rank_index_ms(cols, index, reps: int) -> float:
+    """The rank index's rebuild from the table's bound rows (what a change
+    of the watcher set costs), time per build; it must equal ``index``."""
+    again = fanout.rank_index_plain(cols[0], cols[1])
+    if not all(torch.equal(a, b) for a, b in zip(again, index)):
+        raise AssertionError("a rebuilt rank index differs")
+    return time_ms(lambda: fanout.rank_index_plain(cols[0], cols[1]), reps)
+
+
+def check_index_rows(table, what: str) -> None:
+    """The table's rank index names each slot's own bound rows, in rows
+    that are sorted and distinct (raises otherwise)."""
+    ws, we, _wu, _wr, (rows, rs, re), _wids, _v = table.ranked_view()
+    ok = (torch.equal(rows[rs.long()], ws) and torch.equal(rows[re.long()], we)
+          and bool(fanout._rows_less(rows[:-1], rows[1:]).all()))
+    if not ok:
+        raise AssertionError(f"{what}: the rank index does not fit the table")
+
+
+#: a watcher-set change of each kind the table's publication handles apart
+CHURN_KINDS = ("same range", "new key", "min_rev")
+
+
+def index_churn(m, specs, reps: int, rng) -> tuple[dict, list]:
+    """The table's publication after one watcher-set change, ``reps`` times
+    of each kind: a watcher re-established on the same range (in the slot
+    it left, so no index work), one replaced by a single-key watch of a new
+    key (the rank kernel, one pull, two rows into the index), a ``min_rev``
+    change (no index work). Host ms of ``ranked_view()`` (to a
+    device sync) and of the index update in it, median; the specs after."""
+    table = m.table
+    live = list(specs)
+    wid = max(w for w, *_r in live) + 1
+    version = 1000
+    out = {}
+    for kind in CHURN_KINDS:
+        updates = table.stats()["index_updates"]
+        pub, idx = [], []
+        for _ in range(reps):
+            old, s, e, r = live.pop(rng.randint(len(live)))
+            if kind == "same range":
+                live.append((wid, s, e, r))
+            elif kind == "new key":
+                key = b"/registry/pods/churn/obj-%07d" % wid
+                live.append((wid, key, key + b"\x00", r))
+            else:
+                live.append((old, s, e, r + 1))
+            wid += 1
+            version += 1
+            table.sync(live, version)
+            before = table.stats()["index_s"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            table.ranked_view()
+            torch.cuda.synchronize()
+            pub.append(time.perf_counter() - t)
+            idx.append(table.stats()["index_s"] - before)
+        made = table.stats()["index_updates"] - updates
+        if made != (reps if kind == "new key" else 0):
+            raise AssertionError(f"{kind}: {made} index updates in {reps} "
+                                 f"publications")
+        out[kind] = {"publish_ms": statistics.median(pub) * 1e3,
+                     "index_ms": statistics.median(idx) * 1e3}
+    check_index_rows(table, "after churn")
+    out["index_rows"] = table.stats()["index_rows"]
+    return out, live
 
 
 def edge_block(rng):
@@ -1287,71 +1470,109 @@ def edge_block(rng):
 
 
 def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
-                        seed: int) -> dict:
-    """Phase (f) kernel cases (i)-(iv): K4 and K5 against the plain
-    version, bit for bit."""
+                        seed: int, deep_e: int = 40_000) -> dict:
+    """Phase (f) kernel cases (i)-(vi): K4 and K5 against the plain
+    versions, bit for bit, and against ``match_oracle``."""
     rng = np.random.RandomState(seed)
     out = {}
 
     # (i) the bench shape
     specs = fanout_population(n_w, n_w // 100, rng)
     events = fanout_events(n_e, 1, rng)
-    m, ev, cols, wids = packed_block(specs, events, dev)
+    m, ev, cols, index, wids = packed_block(specs, events, dev)
     w, c = cols[0].shape
     counts, _ = fanout.fanout_dispatch_plain(*ev, n_e, *cols, 1)
     total = int(counts.sum())
     size = fanout.pow2_at_least(total, 128)
-    res = fanout_checks(dispatch_case(ev, n_e, cols, size), 50)
-    res.update(pairs=total, shape=(w, n_e, c))
+    case = dispatch_case(ev, n_e, cols, size, index)
+    res = fanout_checks(case, 50)
+    res.update(pairs=total, shape=(w, n_e, c), n_u=index.rows.shape[0],
+               oracle_pairs=check_oracle(case, events, specs, wids,
+                                         ev[0].shape[0], seed),
+               index_ms=rank_index_ms(cols, index, 20))
+    res["churn"], churned = index_churn(m, specs, 20, rng)
+    ccols = m.table.ranked_view()
+    ccase = dispatch_case(ev, n_e, ccols[:4], size, ccols[4])
+    fanout_checks(ccase, 0)
+    res["churn"]["oracle_pairs"] = check_oracle(
+        ccase, events, churned, ccols[5], ev[0].shape[0], seed)
     out[("fanout_dispatch", "i")] = res
     log(describe_fanout(f"fanout_dispatch [(i) {n_w} watchers, {n_w // 100} "
-                        f"broad, W={w}, E={n_e}, C={c}, {total} pairs, size "
-                        f"{size}]", res))
+                        f"broad, W={w}, E={n_e}, C={c}, n_u={res['n_u']}, "
+                        f"{total} pairs, size {size}]", res))
+    log(f"(i): rank index rebuilt in {res['index_ms']} ms (W={w}); "
+        f"{res['oracle_pairs']} pairs equal to match_oracle; publication "
+        f"after one watcher-set change (host ms, median of 20, the index "
+        f"update in it) {res['churn']}: K4 after the churn bit-identical to "
+        f"the plain versions, {res['churn']['oracle_pairs']} pairs equal to "
+        f"match_oracle")
     # (iv) K5 at EVENT_BATCH and at the full block, on the legacy matcher's
     # own table (W padded to a power of two, 128-byte keys)
     legacy = fanout.FanoutMatcher(device=dev)
     lcols = legacy._watcher_table(specs, version=1)
+    lwids = np.full(lcols[0].shape[0], -1, np.int64)
+    lwids[:len(specs)] = [wid for wid, *_r in specs]
     for n_ev in (300, n_e):
         lev = legacy_block(events[:n_ev], dev)
-        res = fanout_checks(mask_case(lev, n_ev, lcols), 20)
+        case = mask_case(lev, n_ev, lcols, legacy._index)
+        res = fanout_checks(case, 20)
         lw, lc = lcols[0].shape
-        res.update(shape=(lw, lev[0].shape[0], lc))
+        res.update(shape=(lw, lev[0].shape[0], lc),
+                   oracle_pairs=check_oracle(case, events[:n_ev], specs,
+                                             lwids, lev[0].shape[0], seed))
         out[("fanout_mask_range", f"iv {n_ev}")] = res
         log(describe_fanout(f"fanout_mask_range [(iv) {n_w} watchers, "
                             f"W={lw}, E={lev[0].shape[0]}, n_ev={n_ev}, "
-                            f"C={lc}]", res))
-    del m, ev, cols
+                            f"C={lc}, n_u={legacy._index.rows.shape[0]}]",
+                            res))
+    del m, ev, cols, index
 
     # (ii) ten times the watchers, eight times the events
     specs = fanout_population(big_w, big_w // 100, rng)
     events = fanout_events(big_e, 1, rng)
     t0 = time.perf_counter()
-    m, ev, cols, wids = packed_block(specs, events, dev)
+    m, ev, cols, index, wids = packed_block(specs, events, dev)
     packed_s = time.perf_counter() - t0
     w, c = cols[0].shape
     counts, _ = fanout.fanout_dispatch_plain(*ev, big_e, *cols, 1)
     total = int(counts.sum())
     size = fanout.pow2_at_least(total, 128)
-    res = fanout_checks(dispatch_case(ev, big_e, cols, size), 10)
-    res.update(pairs=total, shape=(w, big_e, c))
+    case = dispatch_case(ev, big_e, cols, size, index)
+    res = fanout_checks(case, 10)
+    res.update(pairs=total, shape=(w, big_e, c), n_u=index.rows.shape[0],
+               oracle_pairs=check_oracle(case, events, specs, wids,
+                                         ev[0].shape[0], seed),
+               index_ms=rank_index_ms(cols, index, 10))
+    res["churn"], _churned = index_churn(m, specs, 10, rng)
+    ccols = m.table.ranked_view()
+    fanout_checks(dispatch_case(ev, big_e, ccols[:4], size, ccols[4]), 0)
+    del ccols
     out[("fanout_dispatch", "ii")] = res
     log(describe_fanout(f"fanout_dispatch [(ii) {big_w} watchers, "
                         f"{big_w // 100} broad, W={w}, E={big_e}, C={c}, "
-                        f"{total} pairs, size {size}; table packed in "
-                        f"{packed_s:.1f} s]", res))
-    del m, ev, cols, counts
+                        f"n_u={res['n_u']}, {total} pairs, size {size}; "
+                        f"table packed in {packed_s:.1f} s]", res))
+    log(f"(ii): rank index rebuilt in {res['index_ms']} ms (W={w}); "
+        f"{res['oracle_pairs']} pairs equal to match_oracle; publication "
+        f"after one watcher-set change (host ms, median of 10) "
+        f"{res['churn']}: K4 after the churn bit-identical to the plain "
+        f"versions")
+    del m, ev, cols, index, counts
     torch.cuda.empty_cache()
 
     # (iii) edge cases, also held against the raw-bytes oracle
     specs, events = edge_block(rng)
-    m, ev, cols, wids = packed_block(specs, events, dev)
+    m, ev, cols, index, wids = packed_block(specs, events, dev)
     kept = specs[700:]
+    updates = m.table.stats()["index_updates"]
     m.table.sync(kept, version=2)   # frees 700 slots (dirty-row publish)
-    cols_kept = m.table.device_view()
-    wids = cols_kept[4]
-    cols = cols_kept[:4]
+    cols_kept = m.table.ranked_view()
+    cols, index, wids = cols_kept[:4], cols_kept[4], cols_kept[5]
     if int((wids < 0).sum()) < 700:
         raise AssertionError("churn sync freed no slots")
+    if m.table.stats()["index_updates"] != updates + 1:
+        raise AssertionError("the churn sync did not update the rank index")
+    check_index_rows(m.table, "(iii)")
     epad = ev[0].shape[0]
     n_ev = len(events)
     counts, idx = fanout.fanout_dispatch_plain(*ev, n_ev, *cols, 1 << 16)
@@ -1361,18 +1582,20 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
         raise AssertionError("(iii): plain dispatch differs from match_oracle")
     for what, size in (("truncated", total // 3), ("exact", total),
                        ("above", 2 * total)):
-        res = fanout_checks(dispatch_case(ev, n_ev, cols, size), 0)
+        res = fanout_checks(dispatch_case(ev, n_ev, cols, size, index), 0)
         out[("fanout_dispatch", f"iii {what}")] = res
-    res = fanout_checks(mask_case(ev, n_ev, cols), 0)
+    case = mask_case(ev, n_ev, cols, index)
+    res = fanout_checks(case, 0)
+    res.update(oracle_pairs=check_oracle(case, events, kept, wids, epad, seed))
     out[("fanout_mask_range", "iii")] = res
     log(f"kernels fanout_dispatch, fanout_mask_range [(iii) edges: "
-        f"{len(kept)} live of {len(wids)} slots after churn, E={epad}, "
-        f"n_ev={n_ev}, {total} pairs; sizes {total // 3}, {total}, "
-        f"{2 * total}]: bit-identical to the plain version, which equals "
-        f"match_oracle")
+        f"{len(kept)} live of {len(wids)} slots after churn (rank index "
+        f"updated), E={epad}, n_ev={n_ev}, {total} pairs; sizes {total // 3}, "
+        f"{total}, {2 * total}]: bit-identical to the plain versions, which "
+        f"equal match_oracle")
     long_key = b"/registry/pods/" + b"x" * 185
     events = events + [WatchEvent(revision=600, key=long_key)]
-    m, ev, cols, wids = packed_block(kept, events, dev)
+    m, ev, cols, index, wids = packed_block(kept, events, dev)
     c = cols[0].shape[1]
     if c != 64:
         raise AssertionError(f"a 200-byte key packed at C={c}, not 64")
@@ -1382,27 +1605,63 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
         raise AssertionError("(iii) C=64: plain dispatch differs from "
                              "match_oracle")
     out[("fanout_dispatch", "iii C=64")] = fanout_checks(
-        dispatch_case(ev, len(events), cols, int(counts.sum())), 0)
+        dispatch_case(ev, len(events), cols, int(counts.sum()), index), 0)
     out[("fanout_mask_range", "iii C=64")] = fanout_checks(
-        mask_case(ev, len(events), cols), 0)
+        mask_case(ev, len(events), cols, index), 0)
     log(f"kernels fanout_dispatch, fanout_mask_range [(iii) a 200-byte key, "
-        f"C={c}]: bit-identical to the plain version, which equals "
+        f"C={c}]: bit-identical to the plain versions, which equal "
         f"match_oracle")
-    # a pinned 16-byte width (C = 4): K4's event tile is sized by its shared
-    # memory here, not by its key chunks, and a (ii)-long block spans tiles
+    # a pinned 16-byte width (C = 4), and a (ii)-long block
     specs, events = narrow_block(n_w, big_e, rng)
-    m, ev, cols, wids = packed_block(specs, events, dev, width=16)
+    m, ev, cols, index, wids = packed_block(specs, events, dev, width=16)
     c = cols[0].shape[1]
     counts, _ = fanout.fanout_dispatch_plain(*ev, big_e, *cols, 1)
     total = int(counts.sum())
-    out[("fanout_dispatch", "iii C=4")] = fanout_checks(
-        dispatch_case(ev, big_e, cols, fanout.pow2_at_least(total, 128)), 0)
+    out[("fanout_dispatch", "iii C=4")] = fanout_checks(dispatch_case(
+        ev, big_e, cols, fanout.pow2_at_least(total, 128), index), 0)
     out[("fanout_mask_range", "iii C=4")] = fanout_checks(
-        mask_case(ev, big_e, cols), 0)
+        mask_case(ev, big_e, cols, index), 0)
     log(f"kernels fanout_dispatch, fanout_mask_range [(iii) pinned width 16 "
         f"bytes, C={c}, W={cols[0].shape[0]}, E={big_e}, {total} pairs]: "
-        f"bit-identical to the plain version")
+        f"bit-identical to the plain versions")
+
+    # (v) W = 64: two blocks of slots, and a block of deep_e events (E past
+    # 16,384 on the card: no ballot buffer, the event tiles loop)
+    out.update(deep_case(dev, "v", 64, deep_e, rng, seed))
+    # (vi) a capacity whose int32 flat index allows a block past 16,384
+    # events (10,240 slots: 131,072), at half that depth
+    out.update(deep_case(dev, "vi", n_w, max(deep_e // 2, 1), rng, seed))
     return out
+
+
+def deep_case(dev, what: str, n_w: int, n_e: int, rng, seed: int) -> dict:
+    """K4 and K5 on one block of ``n_e`` events against ``n_w`` watchers of
+    the (i) shape: bit-identical to the plain versions and to
+    ``match_oracle`` (a sample of the watchers)."""
+    specs = fanout_population(n_w, max(n_w // 100, 1), rng)
+    events = fanout_events(n_e, 1, rng)
+    m, ev, cols, index, wids = packed_block(specs, events, dev)
+    w, c = cols[0].shape
+    epad = ev[0].shape[0]
+    if epad > max_block_events(m.table.stats()["capacity"]):
+        raise AssertionError(f"({what}): E={epad} past the flat index")
+    counts, _ = fanout.fanout_dispatch_plain(*ev, n_e, *cols, 1)
+    total = int(counts.sum())
+    case = dispatch_case(ev, n_e, cols, fanout.pow2_at_least(total, 128),
+                         index)
+    res = fanout_checks(case, 0)
+    res.update(oracle_pairs=check_oracle(case, events, specs, wids, epad,
+                                         seed))
+    mcase = mask_case(ev, n_e, cols, index)
+    mres = fanout_checks(mcase, 0)
+    log(f"kernels fanout_dispatch, fanout_mask_range [({what}) {n_w} "
+        f"watchers, W={w}, E={epad}, n_ev={n_e}, C={c}, {total} pairs, "
+        f"max_block_events {max_block_events(m.table.stats()['capacity'])}]: "
+        f"bit-identical to the plain versions; {res['oracle_pairs']} pairs "
+        f"equal to match_oracle")
+    del m, ev, cols, index, case, mcase
+    torch.cuda.empty_cache()
+    return {("fanout_dispatch", what): res, ("fanout_mask_range", what): mres}
 
 
 def narrow_block(n_watchers: int, n_events: int, rng):
@@ -1514,29 +1773,68 @@ def write_load(backend, thread: int, n_ops: int, seed: int) -> list:
     return revs
 
 
+#: client-go's reflector re-establishes an informer's watch every 5 to 10
+#: minutes (tools/cache/reflector.go: minWatchTimeout = 5 min, each watch
+#: request's timeout minWatchTimeout x (1 + rand)): 450 s apart on average
+REWATCH_MEAN_S = 450.0
+
+
 def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
-                n_writers: int, seed: int) -> dict:
+                n_writers: int, seed: int,
+                rewatch_s: float = REWATCH_MEAN_S) -> dict:
     """(f) end to end: register watchers, drain them from consumer threads
     while writer threads write, and hold every watcher's events against
-    ``match_oracle`` over the hub's full event stream."""
+    ``match_oracle`` over the hub's full event stream.
+
+    Watcher churn, while the writers write: re-establishments at the rate
+    of ``n_watchers`` informers re-watching every ``rewatch_s`` seconds on
+    average, each one the oldest of a cohort of a hundredth as
+    many extra watchers unwatched and a new one registered from the next
+    revision on a range of the same generator. A churned watcher's events
+    must be the first of the oracle's from its start revision on (its
+    unwatch may cut them short, never skip one)."""
     hub = backend.watcher_hub
     rng = np.random.RandomState(seed)
+    churn_rng = np.random.RandomState(seed + 1)
     head = backend.current_revision()
     n_consumers = 4
     readies = [collections.deque() for _ in range(n_consumers)]
+    got: dict[int, list[int]] = {}      # by id(queue)
+    poisoned: set[int] = set()          # ids of queues that got None
+
+    def watch(s, e, start_rev, i):
+        ready = readies[i % n_consumers]
+
+        def factory(maxsize):
+            q = NotifyingQueue(maxsize, ready)
+            got[id(q)] = []  # before the hub can put anything
+            return q
+
+        return backend.watch_range(s, e, start_rev, queue_factory=factory)
+
     registered = []
     for i, (_w, s, e, r) in enumerate(fanout_population(n_watchers, n_broad,
                                                         rng)):
         # a fifth start a few hundred revisions ahead: min_rev filters
-        start_rev = head + 1 + 2 * r if i % 5 == 0 else 0
-        ready = readies[i % n_consumers]
-        registered.append(backend.watch_range(
-            s, e, start_rev,
-            queue_factory=lambda maxsize, ready=ready: NotifyingQueue(maxsize,
-                                                                      ready)))
+        registered.append(watch(s, e, head + 1 + 2 * r if i % 5 == 0 else 0,
+                                i))
     with hub._lock:
         specs = [(wid, *hub._filters[wid]) for wid, _q in registered]
-    wid_of = {id(q): wid for wid, q in registered}
+
+    churned: list[tuple] = []           # (wid, queue, start, end, from rev)
+    cohort: collections.deque = collections.deque()
+
+    def rewatch():
+        _w, s, e, _r = fanout_population(1, 0, churn_rng)[0]
+        rev = backend.current_revision() + 1
+        wid, q = watch(s, e, rev, len(churned))
+        churned.append((wid, q, s, e, rev))
+        cohort.append(wid)
+
+    for _ in range(max(n_watchers // 100, 1)):
+        rewatch()
+    table = getattr(hub._fanout_matcher, "table", None)
+    table0 = dict(table.stats()) if table is not None else {}
 
     rec = HubRecorder()
     hub.set_metrics(rec)
@@ -1554,9 +1852,8 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
         streamed.append(list(batch))
 
     hub.stream = recording
-    got: dict[int, list[int]] = {wid: [] for wid, _q in registered}
-    poisoned: list[int] = []
     done = threading.Event()
+    writing = threading.Event()
 
     def consume(ready):
         # each queue posts to one consumer only, so its items are taken in
@@ -1571,20 +1868,28 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
                     return
                 time.sleep(0.002)
                 continue
-            wid = wid_of[id(q)]
             while True:
                 try:
                     item = q.get_nowait()
                 except queue.Empty:
                     break
                 if item is None:
-                    poisoned.append(wid)
+                    poisoned.add(id(q))
                 elif not isinstance(item, ProgressMarker):
-                    got[wid].extend(e.revision for e in item)
+                    got[id(q)].extend(e.revision for e in item)
+
+    def churn():
+        period = rewatch_s / n_watchers
+        t = time.perf_counter()
+        while not writing.wait(max(0.0, t + period - time.perf_counter())):
+            t += period
+            backend.unwatch(cohort.popleft())
+            rewatch()
 
     consumers = [threading.Thread(target=consume, args=(ready,))
                  for ready in readies]
-    for t in consumers:
+    churner = threading.Thread(target=churn)
+    for t in consumers + [churner]:
         t.start()
     t0 = time.perf_counter()
     try:
@@ -1592,6 +1897,8 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
             futs = [pool.submit(write_load, backend, t, n_writes // n_writers,
                                 seed) for t in range(n_writers)]
             written = sorted(r for f in futs for r in f.result())
+        writing.set()
+        churner.join(timeout=60)
         deadline = time.monotonic() + 60
         while not streamed or streamed[-1][-1].revision < written[-1]:
             if time.monotonic() > deadline:
@@ -1599,14 +1906,15 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
             time.sleep(0.01)
         wall = time.perf_counter() - t0
     finally:
+        writing.set()
         done.set()
         for t in consumers:
             t.join(timeout=60)
         del hub.stream
         hub.set_metrics(None)
         TRACER.metrics = None
-    if any(t.is_alive() for t in consumers):
-        raise AssertionError("a consumer thread did not stop")
+    if any(t.is_alive() for t in consumers + [churner]):
+        raise AssertionError("a consumer or churn thread did not stop")
 
     events = [e for b in streamed for e in b]
     revs = np.array([e.revision for e in events], dtype=np.int64)
@@ -1614,29 +1922,49 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
         raise AssertionError("the hub streamed events out of revision order")
     if set(written) - set(revs.tolist()):
         raise AssertionError("a write never reached the hub")
-    if poisoned or rec.dropped or hub.watcher_count() < len(registered):
-        raise AssertionError(f"watchers dropped: {len(poisoned)} poisoned, "
+    dropped = [wid for wid, q in registered if id(q) in poisoned]
+    if dropped or rec.dropped or hub.watcher_count() < len(registered):
+        raise AssertionError(f"watchers dropped: {len(dropped)} poisoned, "
                              f"{rec.dropped} counted")
     t1 = time.perf_counter()
-    ranges = sorted({(s, e) for _w, s, e, _r in specs})
+    ranges = sorted({(s, e) for _w, s, e, _r in specs}
+                    | {(s, e) for _w, _q, s, e, _r in churned})
     col = {r: j for j, r in enumerate(ranges)}
     mask = match_oracle(events, [(j, s, e, 0) for j, (s, e) in
                                  enumerate(ranges)])
     delivered = 0
-    for wid, s, e, min_rev in specs:
+    for (wid, s, e, min_rev), (_wid, q) in zip(specs, registered):
         want = revs[mask[:, col[(s, e)]] & (revs >= min_rev)]
-        if got[wid] != want.tolist():
+        if got[id(q)] != want.tolist():
             raise AssertionError(f"watcher {wid} [{s!r}, {e!r}) min_rev "
-                                 f"{min_rev}: {len(got[wid])} events, the "
+                                 f"{min_rev}: {len(got[id(q)])} events, the "
                                  f"oracle {len(want)}")
         delivered += len(want)
+    churn_delivered = 0
+    for wid, q, s, e, rev in churned:
+        have = got[id(q)]
+        want = revs[mask[:, col[(s, e)]] & (revs >= rev)][:len(have)]
+        if have != want.tolist():
+            raise AssertionError(f"churned watcher {wid} [{s!r}, {e!r}) from "
+                                 f"{rev}: {len(have)} events, not the "
+                                 f"oracle's first")
+        churn_delivered += len(have)
     for wid, _q in registered:
         backend.unwatch(wid)
+    for wid in cohort:
+        backend.unwatch(wid)
     sizes = np.array([len(b) for b in streamed])
+    table1 = table.stats() if table is not None else {}
+    index = {k: table1.get(k, 0) - table0.get(k, 0)
+             for k in ("index_builds", "index_updates", "index_s")}
     return {"biggest": max(streamed, key=len), "watchers": len(specs),
-            "writes": len(written), "events": len(events), "delivered": delivered, "wall_s": wall,
+            "writes": len(written), "events": len(events),
+            "delivered": delivered, "wall_s": wall,
             "oracle_s": time.perf_counter() - t1, "blocks": len(streamed),
             "stream_s": stream_s[0],
+            "rewatches": len(churned) - max(n_watchers // 100, 1),
+            "churn_delivered": churn_delivered, "index": index,
+            "index_ms_per_block": index["index_s"] * 1e3 / len(streamed),
             "block_sizes": np.percentile(sizes, [0, 50, 90, 99, 100]).tolist(),
             "lag_p50_ms": statistics.median(rec.lag) * 1e3 if rec.lag else None,
             "stage_s": dict(rec.stage_s)}
@@ -1664,7 +1992,12 @@ def watch_phase(backend, dev, n_watchers: int, n_writes: int,
         f"none dropped; matcher {res['matcher']}; K4 launches "
         f"{launches['fanout_dispatch']}; WatcherHub.stream {res['stream_s']:.3f} "
         f"s in all, of which stage seconds {res['stage_s']}; host lag p50 "
-        f"(commit to queue) {res['lag_p50_ms']} ms")
+        f"(commit to queue) {res['lag_p50_ms']} ms; {res['rewatches']} "
+        f"re-watches (one per {REWATCH_MEAN_S} s per watcher), churned "
+        f"watchers' "
+        f"{res['churn_delivered']} deliveries equal to the oracle's first; "
+        f"rank index {res['index']} = {res['index_ms_per_block']} ms per "
+        f"block")
     if min(res["matcher"]["blocks"], res["matcher"]["dispatches"],
            launches["fanout_dispatch"]) <= 0:
         raise AssertionError(f"the watch path never reached K4: "
@@ -1673,10 +2006,11 @@ def watch_phase(backend, dev, n_watchers: int, n_writes: int,
     # as the matcher packed it, against the table it matched
     block = res.pop("biggest")
     ev = matcher._pack_events(block)[:2]
-    cols = matcher.table.device_view()[:4]
+    view = matcher.table.ranked_view()
+    cols, index = view[:4], view[4]
     w, c = cols[0].shape
     cases = {"fanout_dispatch": fanout_checks(
-        dispatch_case(ev, len(block), cols, matcher._idx_size), 50)}
+        dispatch_case(ev, len(block), cols, matcher._idx_size, index), 50)}
     log(describe_fanout(f"fanout_dispatch [main path's largest block, W={w}, "
                         f"E={ev[0].shape[0]}, n_ev={len(block)}, C={c}, size "
                         f"{matcher._idx_size}]", cases["fanout_dispatch"]))
@@ -1691,10 +2025,11 @@ def watch_phase(backend, dev, n_watchers: int, n_writes: int,
                             max(n_writers // 2, 2), seed + 1)
         launches["fanout_mask_range"] = fanout_kernels.fanout_mask_range.launches
         block = small.pop("biggest")
-        lcols = legacy.watcher_hub._fanout_matcher._cached
+        lmatcher = legacy.watcher_hub._fanout_matcher
         lev = legacy_block(block, dev)
         cases["fanout_mask_range"] = fanout_checks(
-            mask_case(lev, len(block), lcols), 20)
+            mask_case(lev, len(block), lmatcher._cached, lmatcher._index), 20)
+        lcols = lmatcher._cached
         w, c = lcols[0].shape
         log(describe_fanout(f"fanout_mask_range [legacy path's largest "
                             f"block, W={w}, E={lev[0].shape[0]}, n_ev="
@@ -1774,11 +2109,62 @@ def routing_crossover(dev, n_watchers: int, seed: int) -> list:
 def fanout_phase(backend, dev, args) -> dict:
     """(f): the kernel cases, the watch path end to end, the crossover."""
     cases = fanout_kernel_phase(dev, args.watchers, args.block_events,
-                                args.big_watchers, args.big_events, args.seed)
+                                args.big_watchers, args.big_events, args.seed,
+                                args.deep_events)
     watch = watch_phase(backend, dev, args.watchers, args.writes,
                         args.writers, args.watchers // 100, args.seed)
     crossover = routing_crossover(dev, args.watchers, args.seed)
     return {"cases": cases, "watch": watch, "crossover": crossover}
+
+
+AB_CHILD = """
+import importlib.util, json, sys
+tree, script = sys.argv[1:3]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", script)
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print(json.dumps(smoke.ab_drive(*(int(a) for a in sys.argv[3:]))))
+"""
+
+
+def ab_drive(watchers: int, writes: int, writers: int, seed: int) -> dict:
+    """One watch drive (:func:`watch_drive`) on an empty store through the
+    ``kubebrain_tpu_torch`` that is first on the path, on the card."""
+    _build.build_all()
+    store = new_storage("cuda", inner="memkv")
+    backend = Backend(store, BackendConfig(fanout_matcher=DeviceFanout()))
+    try:
+        res = watch_drive(backend, watchers, watchers // 100, writes, writers,
+                          seed)
+    finally:
+        backend.close()
+        store.close()
+    res.pop("biggest")
+    res["events_per_s"] = res["delivered"] / res["wall_s"]
+    return res
+
+
+def watch_ab(args) -> int:
+    """``--watch-ab DIR``: the watch drive alone, through the package of
+    checkout DIR and through this one in turns (DIR, this, this, DIR), each
+    in a process of its own on the card; one JSON line per run."""
+    here = str(Path(__file__).resolve().parent)
+    for tree in (args.watch_ab, here, here, args.watch_ab):
+        tree = str(Path(tree).resolve())
+        out = subprocess.run(
+            [sys.executable, "-c", AB_CHILD, tree, str(Path(__file__).resolve()),
+             str(args.watchers), str(args.writes), str(args.writers),
+             str(args.seed)],
+            cwd=tree, capture_output=True, text=True, timeout=3000)
+        if out.returncode != 0:
+            print(f"chip_smoke: the watch drive in {tree} failed:\n"
+                  f"{out.stdout[-4000:]}{out.stderr[-4000:]}", file=sys.stderr)
+            return 1
+        log(json.dumps({"tree": tree, **json.loads(
+            out.stdout.strip().splitlines()[-1])}))
+    log(nvidia_smi())
+    return 0
 
 
 def main() -> int:
@@ -1791,12 +2177,16 @@ def main() -> int:
     ap.add_argument("--block-events", type=int, default=512)
     ap.add_argument("--big-watchers", type=int, default=100_000)
     ap.add_argument("--big-events", type=int, default=4096)
+    ap.add_argument("--deep-events", type=int, default=40_000)
     ap.add_argument("--writes", type=int, default=20_000)
     ap.add_argument("--writers", type=int, default=16)
+    ap.add_argument("--watch-ab", metavar="DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.watch_ab:
+        return watch_ab(args)
 
     dev = resolve_device()
 

@@ -14,7 +14,7 @@ protocols:
   tests run the same machinery.
 
 Dispatch sizing: the compacted-index capacity is a persistent pow2 bucket.
-When the counts show the block overflowed it, the matcher doubles the
+When the total shows the block overflowed it, the matcher doubles the
 bucket and re-dispatches — so the steady state is ONE call per drain.
 
 :func:`match_oracle` is the brute-force host oracle every path is held
@@ -114,7 +114,7 @@ class DeviceFanout:
     def _match(self, batch, specs, version=None):
         """One block → (slots int64[M], eidx int64[M], wids int64[cap]):
         compacted matched pairs in ascending (slot, event) order plus the
-        slot→wid map snapshot. Transfer is O(M) + O(cap) counts.
+        slot→wid map snapshot. Transfer is O(M) and the 4-byte total.
 
         A block longer than the int32 flat index allows over the table's
         capacity (:func:`max_block_events`: a backlog of over 16,384 events
@@ -137,16 +137,19 @@ class DeviceFanout:
 
     def _match_piece(self, piece, first: int):
         """One K4 dispatch of events ``piece`` (``batch[first:]``), the
-        bucket regrown and re-dispatched while the counts overflow it."""
+        bucket regrown and re-dispatched while the total overflows it."""
+        # packing may grow the table's width (a new epoch): the view, and
+        # the rank index with it, is taken after it, at the events' width
         ek, er, epad = self._pack_events(piece)
-        ws, we, wu, wr, wids, _ver = self._table.device_view()
+        ws, we, wu, wr, index, wids, _ver = self._table.ranked_view()
         while True:
             self.stats["dispatches"] += 1
             with TRACER.stage("fanout_dispatch"):
-                counts, idx = fanout_dispatch(ek, er, len(piece), ws, we, wu,
-                                              wr, size=self._idx_size)
+                _counts, idx, total = fanout_dispatch(
+                    ek, er, len(piece), ws, we, wu, wr, size=self._idx_size,
+                    index=index, with_total=True)
             with TRACER.stage("fanout_copy"):
-                total = int(_host_pull(counts).sum())
+                total = int(_host_pull(total)[0])
                 if total > self._idx_size:
                     # truncated: double the bucket and re-launch (rare — the
                     # bucket is persistent, so the steady state is one call

@@ -21,7 +21,20 @@ Lifecycle:
   id collision with different filters) rewrites exactly the rows that
   differ and can never match against a dead population.
 - ``device_view()`` publishes the columns: the whole table on first use or
-  growth, otherwise only the dirty rows (``index_copy_``).
+  growth, otherwise only the dirty rows (``index_copy_``). The same step
+  brings the table's rank index (``ops.fanout.RankIndex``: the distinct
+  bound rows sorted, each slot's start and end rank) up to the columns it
+  is returned with (``ranked_view()``), so it can never be staler than
+  they are; a stale index would misdeliver silently. A full publication
+  rebuilds it (C stable sorts of the 2W bound rows). A dirty-row
+  publication updates it for the slots whose bound rows differ from the
+  published ones, by looking their 2d rows up in a host copy of the
+  index's rows and inserting those not in it yet
+  (``ops.fanout.rank_index_update``: no device work to wait for);
+  a change of ``min_rev`` alone, or a watcher re-established on the same
+  range in the same slot, leaves it as it is. Rows no slot holds any more
+  stay in the index, harmlessly, until it holds ``INDEX_SLACK`` times the
+  table's capacity; then it is rebuilt.
 - Capacity is a bucket: pow2 up to 1024, 1024-steps beyond.
 - The packed width is sized to the POPULATION, not to the 128-byte
   protocol maximum: registry keys run ~50 bytes, so packing at a pow2
@@ -43,11 +56,13 @@ table can be split over several cards.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..device import _host_pull
 from ..ops import fanout as fanout_ops
 from ..ops import keys as keyops
 from ..ops.fanout import pow2_at_least
@@ -58,6 +73,10 @@ MIN_CAPACITY = 64
 
 #: smallest auto-sized packed width in bytes (8 uint32 chunks)
 MIN_WIDTH = 32
+
+#: the rank index is rebuilt once it holds this many rows per slot of
+#: capacity (at most 2 are live)
+INDEX_SLACK = 3
 
 #: a sentinel row's key chunks: the all-zero key, sign-flipped
 _SENTINEL = np.int32(-0x80000000)
@@ -79,7 +98,13 @@ class WatcherTable:
         self._epoch = 0          # bumps on (re)allocation → full republish
         self._dev: tuple | None = None
         self._dev_epoch = -1
+        self._index: fanout_ops.RankIndex | None = None  # of self._dev
+        self._index_keys: np.ndarray | None = None  # row_keys of its rows
+        self._index_builds = 0
+        self._index_updates = 0
+        self._index_s = 0.0      # host seconds in index builds and updates
         self._dirty: set[int] = set()
+        self._pub_bounds: tuple | None = None  # host copy of published rows
         self._cap = 0
         with self._lock:
             self._alloc(self._capacity_for(1))
@@ -157,18 +182,15 @@ class WatcherTable:
     def _write_row_locked(self, slot: int, wid: int,
                           spec: tuple[bytes, bytes, int] | None) -> None:
         if spec is None:  # sentinel: bounded empty range can never match
-            self._starts[slot] = _SENTINEL
-            self._ends[slot] = _SENTINEL
-            self._unb[slot] = False
-            self._min_rev[slot] = 0
-            self._wids[slot] = -1
+            s = e = _SENTINEL
+            u, r, wid = False, 0, -1
         else:
             s, e, u, r = self._rows_for(*spec)
-            self._starts[slot] = s
-            self._ends[slot] = e
-            self._unb[slot] = u
-            self._min_rev[slot] = r
-            self._wids[slot] = wid
+        self._starts[slot] = s
+        self._ends[slot] = e
+        self._unb[slot] = u
+        self._min_rev[slot] = r
+        self._wids[slot] = wid
         self._dirty.add(slot)
 
     # ----------------------------------------------------------------- sync
@@ -215,30 +237,73 @@ class WatcherTable:
             self._sync_key = key
 
     # ----------------------------------------------------------- publication
-    def device_view(self):
+    def _publish_locked(self) -> None:
         """Publish dirty rows (or the whole table on first use / growth) and
-        return ``(starts, ends, unbounded, min_rev, wids, version)`` — the
-        device columns plus the slot→wid host map the demux decodes with.
-        The wids array is a snapshot copy: a concurrent sync can't mutate it
-        under a caller mid-demux."""
+        bring the rank index up to the published columns."""
+        hosts = (self._starts, self._ends, self._unb, self._min_rev)
+        if self._dev is None or self._dev_epoch != self._epoch:
+            # a copy on every device, the CPU included: later syncs write
+            # the host shadow, never a published column
+            self._dev = tuple(torch.from_numpy(a).to(self.device, copy=True)
+                              for a in hosts)
+            self._pub_bounds = (self._starts.copy(), self._ends.copy())
+            self._dev_epoch = self._epoch
+            self._index = None
+        elif self._dirty:
+            idx = np.fromiter(sorted(self._dirty), dtype=np.int64,
+                              count=len(self._dirty))
+            idx_dev = torch.from_numpy(idx).to(self.device)
+            for dev, host in zip(self._dev, hosts):
+                dev.index_copy_(0, idx_dev,
+                                torch.from_numpy(host[idx]).to(self.device))
+            starts, ends = self._starts[idx], self._ends[idx]
+            pub_s, pub_e = self._pub_bounds
+            moved = ((starts != pub_s[idx]).any(axis=1)
+                     | (ends != pub_e[idx]).any(axis=1))
+            pub_s[idx], pub_e[idx] = starts, ends
+            if moved.any():
+                self._update_index_locked(idx[moved], starts[moved],
+                                          ends[moved])
+        self._dirty.clear()
+        if self._index is None:
+            t = time.perf_counter()
+            self._index = fanout_ops.rank_index_plain(self._dev[0],
+                                                      self._dev[1])
+            fanout_ops.check_index(self._index, self._cap, self._chunks,
+                                   self._dev[0].device)
+            self._index_keys = fanout_ops.row_keys(
+                _host_pull(self._index.rows))
+            self._index_builds += 1
+            self._index_s += time.perf_counter() - t
+
+    def _update_index_locked(self, slots, starts, ends) -> None:
+        """The rank index after ``slots`` took new bound rows, or None (to
+        be rebuilt) once the rows no slot holds have piled up."""
+        t = time.perf_counter()
+        if (self._index.rows.shape[0] + 2 * len(slots)
+                > INDEX_SLACK * self._cap):
+            self._index = None
+        else:
+            self._index, self._index_keys = fanout_ops.rank_index_update(
+                self._index, self._index_keys, slots, starts, ends)
+            self._index_updates += 1
+        self._index_s += time.perf_counter() - t
+
+    def device_view(self):
+        """Publish and return ``(starts, ends, unbounded, min_rev, wids,
+        version)`` — the device columns plus the slot→wid host map the
+        demux decodes with. The wids array is a snapshot copy: a concurrent
+        sync can't mutate it under a caller mid-demux."""
         with self._lock:
-            hosts = (self._starts, self._ends, self._unb, self._min_rev)
-            if self._dev is None or self._dev_epoch != self._epoch:
-                # a copy on every device, the CPU included: later syncs
-                # write the host shadow, never a published column
-                self._dev = tuple(torch.from_numpy(a).to(self.device, copy=True)
-                                  for a in hosts)
-                self._dev_epoch = self._epoch
-                self._dirty.clear()
-            elif self._dirty:
-                idx = np.fromiter(sorted(self._dirty), dtype=np.int64,
-                                  count=len(self._dirty))
-                idx_dev = torch.from_numpy(idx).to(self.device)
-                for dev, host in zip(self._dev, hosts):
-                    dev.index_copy_(0, idx_dev,
-                                    torch.from_numpy(host[idx]).to(self.device))
-                self._dirty.clear()
+            self._publish_locked()
             return (*self._dev, self._wids.copy(), self._version)
+
+    def ranked_view(self):
+        """:meth:`device_view` with the rank index of the same columns:
+        ``(starts, ends, unbounded, min_rev, index, wids, version)``."""
+        with self._lock:
+            self._publish_locked()
+            return (*self._dev, self._index, self._wids.copy(), self._version)
 
     # ------------------------------------------------------------- inspection
     @property
@@ -257,4 +322,9 @@ class WatcherTable:
                 "epoch": self._epoch,
                 "dirty": len(self._dirty),
                 "version": self._version,
+                "index_builds": self._index_builds,
+                "index_updates": self._index_updates,
+                "index_rows": (0 if self._index is None
+                               else self._index.rows.shape[0]),
+                "index_s": self._index_s,
             }

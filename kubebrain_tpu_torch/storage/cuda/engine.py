@@ -26,6 +26,7 @@ Counterpart of ``kubebrain_tpu/storage/tpu/engine.py``:
 from __future__ import annotations
 
 import bisect
+import functools
 import os
 import random
 import threading
@@ -125,6 +126,12 @@ class _DeltaIndex:
     def tail_rows(self, n: int) -> list[tuple[bytes, int, bytes]]:
         """Rows appended after a ``snapshot_blocks`` that covered ``n``."""
         return self._rows[n:]
+
+    def force_overflow(self) -> None:
+        """Mark the index overflowed (chaos hook: a forced EncodeOverflow):
+        the next merge rebuilds from the store, exactly as if a sealed key
+        had been inexpressible."""
+        self._overflow = True
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -269,6 +276,7 @@ class TorchScanner(Scanner):
         self._merge_max_retries = 4
         self.compact_count = 0
         self.compact_victims_total = 0
+        self.compact_survivor_rows_total = 0
         self.compact_retries_total = 0
         self.compact_escalations_total = 0
         self.compact_errors = 0
@@ -284,8 +292,106 @@ class TorchScanner(Scanner):
         self._degraded_since = 0.0
         self.degraded_seconds_total = 0.0
         self.rebuild_bg_count = 0
+        self._metrics = None
+        self._gauge_regs: list[tuple[str, dict]] = []
+        self._fault_plane = None  # optional chaos-mode injection hooks
+
+    # -------------------------------------------------------------- metrics
+    def register_metrics(self, metrics) -> None:
+        """Callback gauges (counterpart of ``storage/tpu/engine.py:554``):
+        ``kb.mirror.state{state=}``, one 0/1 series per state of the mirror
+        state machine, and the mirror's bytes on its one device,
+        ``kb.mirror.bytes{device=}``, beside ``kb.mirror.raw.bytes{device=}``,
+        what the same rows would take with raw keys. All are unregistered
+        at :meth:`close`."""
+        if metrics is None:
+            return
+        self._metrics = metrics
+        for state in ("serving", "quarantined", "rebuilding"):
+            metrics.register_gauge_fn(
+                "kb.mirror.state", functools.partial(self._state_gauge, state),
+                state=state)
+            self._gauge_regs.append(("kb.mirror.state", {"state": state}))
+        device = str(self._device)
+        for name, raw in (("kb.mirror.bytes", False),
+                          ("kb.mirror.raw.bytes", True)):
+            metrics.register_gauge_fn(
+                name, functools.partial(self._mirror_device_bytes, raw),
+                device=device)
+            self._gauge_regs.append((name, {"device": device}))
+
+    def close(self) -> None:
+        # the callback gauges close over the live mirror: drop them, so a
+        # closed scanner's mirror is not kept reachable and scraped
+        if self._metrics is not None:
+            for name, tags in self._gauge_regs:
+                self._metrics.unregister_gauge_fn(name, **tags)
+            self._gauge_regs = []
+        super().close()
+
+    def _state_gauge(self, state: str) -> float:
+        return 1.0 if self._mirror_state == state else 0.0
+
+    def _mirror_device_bytes(self, raw_equivalent: bool = False) -> float:
+        """Bytes of the published mirror's device columns (shapes only, no
+        copy). ``raw_equivalent`` rescales the key column to the raw packed
+        width: the bytes an un-encoded mirror of the same rows would hold."""
+        mirror = self._mirror
+        if mirror is None:
+            return 0.0
+        total = 0
+        for t in (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
+                  mirror.ttl_dev, mirror.n_valid_dev):
+            nbytes = t.numel() * t.element_size()
+            if (raw_equivalent and t is mirror.keys_dev
+                    and mirror.encoding is not None):
+                nbytes = (nbytes // mirror.encoding.chunks
+                          * (mirror.raw_key_width // 4))
+            total += nbytes
+        return float(total)
+
+    def encoding_stats(self) -> dict:
+        """Footprint of the PUBLISHED mirror and the compaction accounting
+        (the keys and definitions of ``storage/tpu/engine.py:624``). A row
+        holds its key chunks, one int64 revision (the JAX package's hi/lo
+        pair, also 8 bytes) and the tombstone and TTL flags."""
+        mirror = self._mirror
+        if mirror is None:
+            return {}
+        rows = mirror.rows
+        stored_w = mirror.keys_host.shape[2] * 4
+        per_row = stored_w + 8 + 2
+        cap = mirror.keys_host.shape[0] * mirror.keys_host.shape[1]
+        enc = mirror.encoding
+        return {
+            "rows": rows,
+            "mirror_bytes_per_row": float(per_row),
+            "mirror_bytes_per_row_padded": round(per_row * cap / rows, 2)
+            if rows else 0.0,
+            "key_bytes_per_row": stored_w,
+            "raw_key_bytes_per_row": mirror.raw_key_width,
+            "key_compression_ratio": round(mirror.raw_key_width / stored_w, 3),
+            "encoded": enc is not None,
+            "dict_entries": len(enc.boundaries) if enc is not None else 0,
+            "suffix_width": enc.suffix_width if enc is not None else 0,
+            "compact_count": self.compact_count,
+            "compact_victims_total": self.compact_victims_total,
+            "compact_survivor_rows_total": self.compact_survivor_rows_total,
+            "compact_retries_total": self.compact_retries_total,
+            "compact_escalations_total": self.compact_escalations_total,
+            "full_rebuild_total": self.full_rebuild_total,
+        }
 
     # ---------------------------------------------------------- degradation
+    def set_fault_plane(self, plane) -> None:
+        """Arm chaos-mode injection: forced merge failures, merge
+        suppression (the delta grows past the threshold) and a forced
+        EncodeOverflow. ``plane`` has ``merge_fault()``,
+        ``merge_fail_active()``, ``merges_suppressed()``,
+        ``note_suppressed_merge()``, ``compact_fault()`` and
+        ``encode_overflow()``; ``None`` disarms."""
+        self._fault_plane = plane
+
     def _enter_degraded_locked(self, state: str) -> None:
         """Under ``_mlock``: into quarantined/rebuilding; the degraded clock
         starts on the first transition out of serving."""
@@ -370,10 +476,28 @@ class TorchScanner(Scanner):
 
     # ------------------------------------------------------------ write feed
     def record_version_rows(self, rows: list[tuple[bytes, int, bytes]]) -> None:
+        plane = self._fault_plane
         with self._mlock:
             self._delta.extend(rows)
-            kick = (self._mirror is not None and not self._force_rebuild
-                    and len(self._delta) >= self._merge_threshold)
+            if plane is not None and plane.encode_overflow():
+                # chaos: an inexpressible key landed; the next merge
+                # rebuilds from the store
+                self._delta.force_overflow()
+            healthy = self._mirror is not None and not self._force_rebuild
+            kick = healthy and (
+                len(self._delta) >= self._merge_threshold
+                # an open merge-fail window kicks eagerly, so the failing
+                # merge's retries and escalation actually run
+                or (plane is not None and len(self._delta) > 0
+                    and plane.merge_fail_active()))
+            pending = len(self._delta) > 0
+        if plane is not None and plane.merges_suppressed():
+            # chaos: merges suppressed; the delta grows and readers pay the
+            # (exact) overlay. Each write onto a pending delta counts one
+            # denied merge.
+            if pending:
+                plane.note_suppressed_merge()
+            return
         if kick:
             self._kick_merge()
 
@@ -437,6 +561,7 @@ class TorchScanner(Scanner):
 
     # -------------------------------------------------------------- publish
     def _ensure_published(self, full: bool = False) -> None:
+        plane = self._fault_plane
         with self._mlock:
             if self._force_rebuild or self._mirror is None:
                 self._rebuild_from_store()
@@ -445,6 +570,11 @@ class TorchScanner(Scanner):
                 full or len(self._delta) >= self._merge_threshold)
             if not want_merge or (not full and self._compact_active):
                 return
+        if not full and plane is not None and plane.merges_suppressed():
+            # chaos: serve mirror + overlay (still exact); each read that
+            # would have merged counts one suppressed merge
+            plane.note_suppressed_merge()
+            return
         if full:
             self._merge_delta()
             return
@@ -497,6 +627,11 @@ class TorchScanner(Scanner):
         every row appended after the snapshot in the successor overlay. An
         overflowed delta, a width drift or an empty mirror rebuilds from
         the store instead, counted in ``full_rebuild_total``."""
+        plane = self._fault_plane
+        if plane is not None and plane.merge_fault():
+            # chaos: fail before any state changes; readers keep serving
+            # mirror + overlay, the retries and the escalation recover
+            raise RuntimeError("injected merge failure (fault plane)")
         with self._merge_lock:
             with self._mlock:
                 if self._force_rebuild or self._mirror is None:
@@ -997,6 +1132,7 @@ class TorchScanner(Scanner):
             self._compact_retry_escalate(mirror, keep_idx, stats, phases)
         self.compact_count += 1
         self.compact_victims_total += n_victims
+        self.compact_survivor_rows_total += stats.survivor_rows
         return stats
 
     def _compact_gc(self, store, mirror: Mirror, victims_by_part,
@@ -1089,6 +1225,11 @@ class TorchScanner(Scanner):
         swap only. Survivors are gathered in the stored domain and the
         delta sealed before the snapshot is merged in. Returns True when the
         mirror was superseded (an uncertainty rebuild swapped it)."""
+        plane = self._fault_plane
+        if plane is not None and plane.compact_fault():
+            # chaos: fail before any state changes; the caller's retries
+            # and escalation recover, the store's deletes stand
+            raise RuntimeError("injected compact failure (fault plane)")
         t0 = time.monotonic()
         with self._mlock:
             if self._force_rebuild or self._mirror is not mirror:

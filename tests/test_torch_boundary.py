@@ -92,3 +92,14 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     out = _smoke(tmp_path, {"PYTHONPATH": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_watch_ab_fails_without_card():
+    """The A/B watch drive measures on a card or not at all: without one
+    it fails and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--watch-ab", "."],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert '"tree"' not in out.stdout

@@ -6,7 +6,8 @@ wrapper's own counter, and stubs the CUDA clock, the profiler and
 synchronisation. The wrappers compute the kernels' own algorithms in place
 of the plain versions (K1/K2's block-classified
 ``scan.visibility_mask_blocked``, K3's tiled ``compact.victim_mask_tiled``,
-K4's count → offsets → ranked write ``fanout.fanout_dispatch_ranked``), so
+K4's ranks → count → look-back → ranked write
+``fanout.fanout_dispatch_ranked``), so
 every check of the script holds those algorithms against the plain
 version. What it checks is the script's control flow: every comparison it
 makes against the plain versions, the host ``Scanner`` and
@@ -76,7 +77,7 @@ def cpu_shims(setattr_) -> None:
     setattr_(torch.cuda, "Event", _HostEvent)
     setattr_(torch.cuda, "empty_cache", lambda: None)
     setattr_(chip_smoke, "device_ms",
-             lambda fn, kernels, reps: (fn(), (None, 0.0))[1])
+             lambda fn, kernels, reps: (fn(), (None, 1.0))[1])
     setattr_(chip_smoke, "cold_ms", lambda fn, reps: chip_smoke.time_ms(fn, 1))
 
     def victim_mask(*args):
@@ -92,13 +93,14 @@ def cpu_shims(setattr_) -> None:
         return tscan.visibility_mask_blocked(keys_t, revs, tomb, nv, starts,
                                              ends, unb, rrevs)
 
-    def fanout_dispatch(*args):
+    def fanout_dispatch(*args, index=None):
         fanout_kernels.fanout_dispatch.launches += 1
-        return tfanout.fanout_dispatch_ranked(*args)
+        # a small residency, so that the look-back walks past a window
+        return tfanout.fanout_dispatch_ranked(*args, index=index, resident=3)
 
-    def fanout_mask_range(*args):
+    def fanout_mask_range(*args, index=None):
         fanout_kernels.fanout_mask_range.launches += 1
-        return tfanout.fanout_mask_range(*args)
+        return tfanout.fanout_mask_rank_plain(*args, index=index)
 
     setattr_(compact_kernels, "compact",
              types.SimpleNamespace(victim_mask=victim_mask))
@@ -106,8 +108,8 @@ def cpu_shims(setattr_) -> None:
              types.SimpleNamespace(visibility_mask=visibility_mask))
     plain = {k: v for k, v in vars(tfanout).items() if not k.startswith("__")}
     setattr_(fanout_kernels, "fanout", types.SimpleNamespace(**{
-        **plain, "fanout_dispatch_plain": fanout_dispatch,
-        "fanout_mask_range": fanout_mask_range}))
+        **plain, "fanout_dispatch_ranked": fanout_dispatch,
+        "fanout_mask_rank_plain": fanout_mask_range}))
 
 
 @pytest.fixture
@@ -222,17 +224,44 @@ def test_off_device_guard_fails(moved):
 
 
 def test_fanout_kernel_cases(shims):
-    """Phase (f) kernel cases (i)-(iv): K4's ranked algorithm and K5 agree
-    with the plain version, the edge cases with match_oracle (and the
-    pinned 16-byte width, C = 4, with the plain version), and every case
-    counts its launches."""
-    cases = chip_smoke.fanout_kernel_phase(CPU, 300, 512, 700, 128, seed=0)
-    assert len(cases) == 12
+    """Phase (f) kernel cases (i)-(vi): K4's ranked algorithm and K5 agree
+    with both plain versions, the edge cases and samples of the others
+    with match_oracle (and the pinned 16-byte width, C = 4, with the plain
+    versions), and every case counts its launches."""
+    cases = chip_smoke.fanout_kernel_phase(CPU, 300, 512, 700, 128, seed=0,
+                                           deep_e=600)
+    assert len(cases) == 16
     for (name, what), m in cases.items():
         assert m["max_abs_err"] == 0 and m["launches"] > 0, (name, what)
     for what in ("i", "ii"):
         m = cases[("fanout_dispatch", what)]
         assert m["pairs"] > 0 and 0 < m["bound_ms"] and "device_ms" in m
+        # the least-work bound of rank space lies below the compare bound
+        assert m["bound_ms"] < m["bound_full_ms"]
+        assert m["index_ms"] > 0 and m["oracle_pairs"] > 0
+        churn = m["churn"]
+        assert all(churn[kind]["publish_ms"] > 0
+                   for kind in chip_smoke.CHURN_KINDS)
+        assert churn["min_rev"]["index_ms"] == 0
+        assert churn["new key"]["index_ms"] > 0
+    assert cases[("fanout_dispatch", "i")]["churn"]["oracle_pairs"] > 0
+    assert cases[("fanout_dispatch", "v")]["oracle_pairs"] == 64 * 600
+
+
+def test_a_case_without_profiler_records_fails(shims, monkeypatch):
+    """A measured case whose profile keeps no kernel record fails the
+    phase (its device time would read as nothing), after two retries."""
+    calls = []
+
+    def no_records(fn, kernels, reps):
+        calls.append(reps)
+        return None, 0.0
+
+    monkeypatch.setattr(chip_smoke, "device_ms", no_records)
+    with pytest.raises(AssertionError, match="no record"):
+        chip_smoke.fanout_kernel_phase(CPU, 300, 512, 700, 128, seed=0,
+                                       deep_e=600)
+    assert calls == [50, 100, 200]
 
 
 def _watch_backend():
@@ -264,19 +293,59 @@ def test_watch_phase_routes_to_the_matcher_and_drops_nobody(shims, seed):
 def test_watch_phase_catches_a_lost_delivery(shims, monkeypatch):
     """A K4 that loses the last match of every block fails the end-to-end
     comparison with match_oracle: it has teeth."""
-    def lossy(*args):
-        counts, idx = tfanout.fanout_dispatch_plain(*args)
+    def lossy(*args, index=None):
+        counts, idx = tfanout.fanout_dispatch_ranked(*args, index=index)
         hit = counts.nonzero()
         if len(hit):
             counts[hit[-1]] -= 1
         return counts, idx
 
     monkeypatch.setattr(fanout_kernels, "fanout", types.SimpleNamespace(
-        **{**vars(fanout_kernels.fanout), "fanout_dispatch_plain": lossy}))
+        **{**vars(fanout_kernels.fanout),
+           "fanout_dispatch_ranked": lossy}))
     store, backend = _watch_backend()
     try:
         with pytest.raises(AssertionError, match="oracle"):
             chip_smoke.watch_drive(backend, 200, 70, 120, 2, 0)
+    finally:
+        backend.close()
+        store.close()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_watch_drive_under_watcher_churn(shims, seed):
+    """The drive with watchers re-established every few milliseconds:
+    every watcher still equals match_oracle, every churned watcher's
+    events are the oracle's first from its start revision, and the
+    table's rank index was updated, not only rebuilt."""
+    store, backend = _watch_backend()
+    try:
+        res = chip_smoke.watch_drive(backend, 300, 70, 480, 4, seed,
+                                     rewatch_s=0.6)
+    finally:
+        backend.close()
+        store.close()
+    assert res["rewatches"] > 0 and res["churn_delivered"] > 0
+    assert res["index"]["index_updates"] > 0
+    assert res["index_ms_per_block"] > 0
+
+
+def test_watch_drive_catches_a_churned_watchers_extra_event(shims,
+                                                             monkeypatch):
+    """A churned watcher handed an event from before its start revision
+    fails the drive: the churn check has teeth."""
+    orig = chip_smoke.Backend.watch_range
+
+    def early(self, s, e, rev, queue_factory=None):
+        return orig(self, s, e, max(rev - 200, 1) if rev else rev,
+                    queue_factory=queue_factory)
+
+    monkeypatch.setattr(chip_smoke.Backend, "watch_range", early)
+    store, backend = _watch_backend()
+    try:
+        with pytest.raises(AssertionError, match="churned watcher"):
+            chip_smoke.watch_drive(backend, 300, 70, 480, 4, 0,
+                                   rewatch_s=0.6)
     finally:
         backend.close()
         store.close()
@@ -317,7 +386,7 @@ def main() -> int:
     store, backend = _watch_backend()
     try:
         chip_smoke.fanout_kernel_phase(CPU, args.watchers, 128, 2 * args.watchers,
-                                       256, args.seed)
+                                       256, args.seed, deep_e=2000)
         chip_smoke.watch_phase(backend, CPU, args.watchers, args.writes,
                                args.writers, 70, args.seed)
         chip_smoke.routing_crossover(CPU, args.watchers, args.seed)
