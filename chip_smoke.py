@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--keys 1000000]
                           [--kernel-keys 200000] [--kernel-revs 100]
-    python3 chip_smoke.py --watch-ab DIR [--watchers 10000] [--writes 20000]
+    python3 chip_smoke.py --watch-ab DIR [--watchers 10000] [--writes 10000]
 
 Phases, in the order they run (any failure exits non-zero and prints no
 result line):
@@ -104,6 +104,42 @@ result line):
     (``DeviceFanout.deliver`` and the queue puts) against ``stream`` through
     the index of a hub without a matcher.
 
+(g) deployed engines: ``make -C native libkbstore.so kvrpc/kbstored`` runs
+    beside the kernels' nvcc in (a); a failed build fails the run.
+    (g1) ``cuda`` over ``native`` in the README's single-node shape: a
+    fresh data dir under ``build/smoke/``, fsync off, 4 native partitions
+    (the CLI's ``--native-partitions`` default), loaded with (c)'s dataset
+    through the untracked engine. The mirror must be built by the engine's
+    C++ bulk export (``mirror_builds``); a per-row build of the same store
+    is timed beside it and must equal it column for column. (c)'s request
+    set must equal the generic host ``Scanner`` over the same store, K1 and
+    K2 launching; (e)'s compaction (through ``kb_bulk_gc``) must leave the
+    store dump, ``version_count()`` and victim fields of the host
+    ``Scanner``'s compaction on a native twin. Then the store closes, a
+    ``cuda`` over native reopens the same dir, boots by export, and every
+    Range, Count and ``list_batch`` answer at the head and the compaction
+    revision equals the one before the restart. (g2) the same load, serve
+    and compaction checks for ``cuda`` over ``remote``: a ``kbstored`` on a
+    data dir, the pool of 8 (the CLI's ``--storage-pool`` default), the
+    twin on a second ``kbstored``; ``--remote-keys`` deep (250,000: its load
+    and its compaction's deletes go over TCP a request at a time).
+(h) chaos: ``cuda`` over native with the inner engine wrapped by
+    ``FaultyStorage`` through ``inner_wrap`` and a ``FaultPlane`` of
+    ``faults.generate(preset, --seed, --chaos-horizon)``, the ``storage``
+    preset, then ``merge``, over ``--chaos-keys`` keys. The plane is armed
+    over a watch drive of ``--chaos-watchers`` watchers (70 broad) whose
+    writers go on through faults, with a reader of Range, Count and
+    ``list_batch`` and one compaction midway. After the horizon the retry
+    FIFO is drained, and: every acknowledged write reads back, no write
+    that failed definitely is present, every key an uncertain write
+    touched holds a value it may, the mirror serves again, every watcher's
+    events equal ``match_oracle`` with none dropped, every response equals
+    the host ``Scanner``, and a compaction runs with K1-K3 launching. The
+    plane's injected counts, quarantines, degraded seconds and rebuilds are
+    printed.
+
+Each phase's seconds are printed before the result lines.
+
 Each measured kernel case prints its time per call over many launches back
 to back between one pair of CUDA events (the host's side of each call
 included where it is the longer), its device time from ``torch.profiler``
@@ -132,6 +168,8 @@ import json
 import math
 import queue
 import random
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -149,6 +187,7 @@ from kubebrain_tpu_torch.backend.common import LAST_REV_KEY, TOMBSTONE, WatchEve
 from kubebrain_tpu_torch.backend.scanner import EVENTS_TTL_SECONDS, Scanner
 from kubebrain_tpu_torch.backend.watcherhub import ProgressMarker, WatcherHub
 from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
+from kubebrain_tpu_torch.faults import FaultPlane, FaultyStorage, generate
 from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
 from kubebrain_tpu_torch.fanout.dispatch import max_block_events
 from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
@@ -156,6 +195,11 @@ from kubebrain_tpu_torch.ops import scan, scan_kernels
 from kubebrain_tpu_torch.ops import keys as keyops
 from kubebrain_tpu_torch.ops.scan import flip_sign
 from kubebrain_tpu_torch.storage import new_storage
+from kubebrain_tpu_torch.storage.errors import (
+    KeyNotFoundError,
+    StorageError,
+    UncertainResultError,
+)
 from kubebrain_tpu_torch.storage.cuda.encode import build_encoding
 from kubebrain_tpu_torch.trace import TRACER
 from kubebrain_tpu_torch.storage.cuda.engine import (
@@ -800,14 +844,10 @@ def kube_dataset(n_keys: int, seed: int):
     return rows, rev
 
 
-def load_store(n_keys: int, seed: int, dev):
-    """A cuda store over memkv, without engine TTL (so /events/ rows expire
-    through the compaction history), loaded with :func:`kube_dataset`
-    through the untracked inner engine. Returns (store, top revision)."""
+def load_rows(inner, rows, top: int) -> float:
+    """Put ``rows`` into ``inner`` (an untracked engine) 1,024 to a batch,
+    then ``LAST_REV_KEY`` at ``top``; returns the seconds it took."""
     t0 = time.perf_counter()
-    rows, top = kube_dataset(n_keys, seed)
-    store = new_storage("cuda", inner="memkv", device=dev, ttl_supported=False)
-    inner = store.untracked()
     for b0 in range(0, len(rows), 1024):
         bw = inner.begin_batch_write()
         for k, v in rows[b0 : b0 + 1024]:
@@ -816,6 +856,18 @@ def load_store(n_keys: int, seed: int, dev):
     bw = inner.begin_batch_write()
     bw.put(LAST_REV_KEY, coder.encode_rev_value(top))
     bw.commit()
+    return time.perf_counter() - t0
+
+
+def load_store(n_keys: int, seed: int, dev, data=None):
+    """A cuda store over memkv, without engine TTL (so /events/ rows expire
+    through the compaction history), loaded with :func:`kube_dataset`
+    (``data``, when given, is its result) through the untracked inner
+    engine. Returns (store, top revision)."""
+    t0 = time.perf_counter()
+    rows, top = data or kube_dataset(n_keys, seed)
+    store = new_storage("cuda", inner="memkv", device=dev, ttl_supported=False)
+    load_rows(store.untracked(), rows, top)
     log(f"main path: {n_keys} user keys, {len(rows)} store rows, top revision "
         f"{top}, loaded in {time.perf_counter() - t0:.1f} s")
     return store, top
@@ -866,6 +918,93 @@ def stayed_on_device(scanner, rebuilds: int, what: str) -> None:
         f"second or rebuild from the store")
 
 
+NS = (b"/registry/pods/ns05/", b"/registry/pods/ns050")
+PODS = (b"/registry/pods/", b"/registry/pods0")
+
+
+def request_batch(top: int) -> list:
+    """The ``list_batch`` of the main path: 8 queries, 2 of them Counts."""
+    old = top // 2
+    return [
+        ("list", b"/registry/pods/ns01/", b"/registry/pods/ns010", 0, 0),
+        ("list", b"/registry/pods/ns02/", b"/registry/pods/ns020", old, 0),
+        ("count", b"/registry/pods/", b"/registry/pods0", 0),
+        ("list", b"/events/ns03/", b"/events/ns030", 0, 0),
+        ("list", b"/registry/pods/ns31/pod-0001", b"/registry/pods/ns31/pod-0005", 0, 0),
+        ("count", b"/events/", b"/events0", old),
+        ("list", b"/registry/pods/ns07/", b"/registry/pods/ns070", top // 3, 0),
+        ("list", b"/registry/pods/ns09/pod-", b"", 0, 0),
+    ]
+
+
+def serve_requests(backend, oracle, top: int, what: str,
+                   reps: int = 3) -> dict:
+    """The main path's request set, ``reps`` times each, then three writes
+    and the reads through the delta overlay; every response against the
+    host scanner ``oracle`` over the same store. K1 and K2 must launch.
+    Returns the latencies by request kind, the launches and the transfer."""
+    if backend.current_revision() != top:
+        raise AssertionError(f"{what}: backend did not recover the top "
+                             f"revision")
+    lat: dict[str, list[float]] = {}
+
+    def timed(kind, fn):
+        t = time.perf_counter()
+        out = fn()
+        lat.setdefault(kind, []).append(time.perf_counter() - t)
+        return out
+
+    old = top // 2
+    batch = request_batch(top)
+    TRANSFER_METER.bytes = TRANSFER_METER.pulls = 0
+    scan_kernels.reset_launch_counts()
+    for _ in range(reps):
+        r_ns = timed("range_namespace", lambda: backend.list_(*NS))
+        r_all = timed("range_all_pods", lambda: backend.list_(*PODS))
+        r_cnt = timed("count", lambda: backend.count(*PODS))
+        r_old = timed("range_old_revision",
+                      lambda: backend.list_(*NS, revision=old))
+        r_batch = timed("list_batch_8", lambda: backend.list_batch(batch))
+    # writes, then reads through the delta overlay
+    k_new = b"/registry/pods/ns05/pod-new"
+    backend.create(k_new, b"fresh")
+    k_upd = next(kv for kv in r_ns.kvs)
+    backend.update(k_upd.key, b"updated", k_upd.revision)
+    backend.delete(r_ns.kvs[1].key)
+    for _ in range(reps):
+        r_ovl = timed("range_overlay", lambda: backend.list_(*NS))
+        c_ovl = timed("count_overlay", lambda: backend.count(*PODS))
+    launches = {"scan_mask": scan_kernels.visibility_mask_batch.launches,
+                "scan_mask_q": scan_kernels.visibility_mask_batch_q.launches}
+    moved = TRANSFER_METER.snapshot()
+
+    head = backend.current_revision()
+    same_kvs(r_ns.kvs, oracle.range_(*NS, top)[0], f"{what}: namespace range")
+    same_kvs(r_all.kvs, oracle.range_(*PODS, top)[0], f"{what}: pods range")
+    if r_cnt[0] != oracle.count(*PODS, top):
+        raise AssertionError(f"{what}: count differs from the host scanner")
+    same_kvs(r_old.kvs, oracle.range_(*NS, old)[0],
+             f"{what}: old-revision range")
+    check_batch(batch, r_batch, oracle, top)
+    same_kvs(r_ovl.kvs, oracle.range_(*NS, head)[0], f"{what}: overlay range")
+    if c_ovl[0] != oracle.count(*PODS, head):
+        raise AssertionError(f"{what}: overlay count differs from the host "
+                             f"scanner")
+    log(f"{what}: every response equals the host scanner "
+        f"(pods range {len(r_all.kvs)} kvs, count {r_cnt[0]}, "
+        f"overlay count {c_ovl[0]})")
+    for kind, ts in lat.items():
+        log(f"{what}: p50 {kind}: {statistics.median(ts) * 1e3:.3f} ms "
+            f"over {len(ts)} requests")
+    log(f"{what}: launches K1 {launches['scan_mask']}, "
+        f"K2 {launches['scan_mask_q']}; device->host {moved[0]} bytes "
+        f"in {moved[1]} pulls")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{what}: a kernel of the path never launched: "
+                             f"{launches}")
+    return {"lat": lat, "launches": launches, "batch": batch, "head": head}
+
+
 def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
     """(c): the read path against the host scanner over the same store."""
     oracle = Scanner(store.untracked(), get_compact_revision=lambda _s: 0)
@@ -877,79 +1016,14 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
         log(f"mirror published in {time.perf_counter() - t0:.1f} s: "
             f"{m.rows} rows, capacity {m.keys_host.shape[1]}, "
             f"{m.keys_host.shape[2]} chunks/key, encoded={m.encoding is not None}")
-        if backend.current_revision() != top:
-            raise AssertionError("backend did not recover the top revision")
-
-        lat: dict[str, list[float]] = {}
-
-        def timed(kind, fn):
-            t = time.perf_counter()
-            out = fn()
-            lat.setdefault(kind, []).append(time.perf_counter() - t)
-            return out
-
-        ns = (b"/registry/pods/ns05/", b"/registry/pods/ns050")
-        pods = (b"/registry/pods/", b"/registry/pods0")
-        old = top // 2
-        batch = [
-            ("list", b"/registry/pods/ns01/", b"/registry/pods/ns010", 0, 0),
-            ("list", b"/registry/pods/ns02/", b"/registry/pods/ns020", old, 0),
-            ("count", b"/registry/pods/", b"/registry/pods0", 0),
-            ("list", b"/events/ns03/", b"/events/ns030", 0, 0),
-            ("list", b"/registry/pods/ns31/pod-0001", b"/registry/pods/ns31/pod-0005", 0, 0),
-            ("count", b"/events/", b"/events0", old),
-            ("list", b"/registry/pods/ns07/", b"/registry/pods/ns070", top // 3, 0),
-            ("list", b"/registry/pods/ns09/pod-", b"", 0, 0),
-        ]
-        TRANSFER_METER.bytes = TRANSFER_METER.pulls = 0
-        scan_kernels.reset_launch_counts()
-        reps = 3
-        for _ in range(reps):
-            r_ns = timed("range_namespace", lambda: backend.list_(*ns))
-            r_all = timed("range_all_pods", lambda: backend.list_(*pods))
-            r_cnt = timed("count", lambda: backend.count(*pods))
-            r_old = timed("range_old_revision",
-                          lambda: backend.list_(*ns, revision=old))
-            r_batch = timed("list_batch_8", lambda: backend.list_batch(batch))
-        # writes, then reads through the delta overlay
-        k_new = b"/registry/pods/ns05/pod-new"
-        backend.create(k_new, b"fresh")
-        k_upd = next(kv for kv in r_ns.kvs)
-        backend.update(k_upd.key, b"updated", k_upd.revision)
-        backend.delete(r_ns.kvs[1].key)
-        for _ in range(reps):
-            r_ovl = timed("range_overlay", lambda: backend.list_(*ns))
-            c_ovl = timed("count_overlay", lambda: backend.count(*pods))
-        launches = {"scan_mask": scan_kernels.visibility_mask_batch.launches,
-                    "scan_mask_q": scan_kernels.visibility_mask_batch_q.launches}
-        moved = TRANSFER_METER.snapshot()
-
-        head = backend.current_revision()
-        same_kvs(r_ns.kvs, oracle.range_(*ns, top)[0], "namespace range")
-        same_kvs(r_all.kvs, oracle.range_(*pods, top)[0], "pods range")
-        if r_cnt[0] != oracle.count(*pods, top):
-            raise AssertionError("count differs from the host scanner")
-        same_kvs(r_old.kvs, oracle.range_(*ns, old)[0], "old-revision range")
-        check_batch(batch, r_batch, oracle, top)
-        same_kvs(r_ovl.kvs, oracle.range_(*ns, head)[0], "overlay range")
-        if c_ovl[0] != oracle.count(*pods, head):
-            raise AssertionError("overlay count differs from the host scanner")
-        log(f"main path: every response equals the host scanner "
-            f"(pods range {len(r_all.kvs)} kvs, count {r_cnt[0]}, "
-            f"overlay count {c_ovl[0]})")
-        for kind, ts in lat.items():
-            log(f"p50 {kind}: {statistics.median(ts) * 1e3:.3f} ms "
-                f"over {len(ts)} requests")
-        log(f"main path launches: K1 {launches['scan_mask']}, "
-            f"K2 {launches['scan_mask_q']}; device->host {moved[0]} bytes "
-            f"in {moved[1]} pulls")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        served = serve_requests(backend, oracle, top, "main path")
+        launches, batch, head = (served["launches"], served["batch"],
+                                 served["head"])
 
         # where one Range's time goes, stage by stage (host clock)
         scanner = backend.scanner
         mirror = scanner._mirror
-        for label, (s, e) in (("namespace", ns), ("all pods", pods)):
+        for label, (s, e) in (("namespace", NS), ("all pods", PODS)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             mask, counts = scanner._dev_mask(mirror, s, e, head)
@@ -971,7 +1045,7 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
                 mirror.n_valid_dev)
         p, c, n = mirror.keys_dev.shape
         for name, specs in (
-                ("scan_mask", [(ns[0], ns[1], head)]),
+                ("scan_mask", [(*NS, head)]),
                 ("scan_mask_q", [(q[1], q[2], q[3] or head) for q in batch])):
             q_args = query_tensors(mirror.encoding, mirror.key_width, specs, dev)
             case = scan_case(name, *cols, *q_args)
@@ -1000,7 +1074,7 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
         mask, counts = scan_case(
             "scan_mask", mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
             mirror.n_valid_dev, *query_tensors(
-                mirror.encoding, mirror.key_width, [(pods[0], pods[1], head)],
+                mirror.encoding, mirror.key_width, [(*PODS, head)],
                 dev)).kernel()
         size = 1
         while size < int(counts.max()):
@@ -1050,11 +1124,19 @@ def same_store(a, b) -> int:
     return n
 
 
-def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
+def compact_phase(backend, store, top: int, n_keys: int, dev,
+                  twin_factory=None, what: str = "compact",
+                  measure_reps: int = 50) -> dict:
     """(e): Backend.compact on the main path against the host scanner's
-    compaction of a twin store."""
+    compaction of a twin store: ``twin_factory()`` (an engine of the same
+    kind as the store's inner one; memkv without engine TTL by default),
+    filled from a dump of the store. An engine with TTL of its own expires
+    no row through the compaction history, so the TTL victims are required
+    only of one without."""
     scanner = backend.scanner
     inner = store.untracked()
+    twin_factory = twin_factory or (
+        lambda: new_storage("memkv", ttl_supported=False))
     # a pending delta: a few hundred writes after the last read, some of
     # them new versions of /events/ keys that would otherwise expire
     pend: dict[bytes, int] = {}
@@ -1077,7 +1159,7 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
     aged = time.time() - 2 * EVENTS_TTL_SECONDS
 
     t0 = time.perf_counter()
-    twin = new_storage("memkv", ttl_supported=False)
+    twin = twin_factory()
     rows = inner.iter(b"", b"")
     while True:
         chunk = list(itertools.islice(rows, 1024))
@@ -1088,7 +1170,7 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
             bw.put(k, v)
         bw.commit()
     twin_backend = Backend(twin, BackendConfig())
-    log(f"compact: twin memkv filled from a dump in "
+    log(f"{what}: twin {type(twin).__name__} filled from a dump in "
         f"{time.perf_counter() - t0:.1f} s; {n_pending} rows pending")
     oracle = Scanner(inner, get_compact_revision=lambda _s: 0)
     try:
@@ -1117,11 +1199,11 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
                                                              compact_rev)
 
         for s in dev_stats:
-            log(f"compact [device, {s.mirror_path}]: scanned {s.scanned}, "
+            log(f"{what} [device, {s.mirror_path}]: scanned {s.scanned}, "
                 f"survivors {s.survivor_rows}, dirty partitions "
                 f"{s.dirty_partitions}, phases " + ", ".join(
                     f"{k} {v} s" for k, v in s.phase_seconds.items()))
-        log(f"compact: device path {dev_wall} s, host scanner on the twin "
+        log(f"{what}: device path {dev_wall} s, host scanner on the twin "
             f"{host_wall} s; victims (versions, tombstones, rev records, "
             f"ttl) device {victim_totals(dev_stats)}, host "
             f"{victim_totals(host_stats)}; K3 launches {launches}")
@@ -1130,10 +1212,11 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
                                  f"not {compact_rev}")
         if victim_totals(dev_stats) != victim_totals(host_stats):
             raise AssertionError("CompactStats victim fields differ")
-        if victim_totals(dev_stats)[3] <= 0:
+        if victim_totals(dev_stats)[3] <= 0 and not inner.support_ttl():
             raise AssertionError("no /events/ row expired by TTL")
         n_rows = same_store(inner, twin)
-        counts = (inner.version_count(), twin.version_count())
+        counts = ((inner.version_count(), twin.version_count())
+                  if hasattr(inner, "version_count") else ("none", "none"))
         if counts[0] != counts[1]:
             raise AssertionError(f"version_count differs: {counts}")
         if scanner.full_rebuild_total != rebuilds:
@@ -1144,8 +1227,8 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
             raise AssertionError("pending delta not merged, or not serving")
         if launches <= 0:
             raise AssertionError("K3 never launched on the main path")
-        log(f"compact: store dumps equal ({n_rows} rows), version_count "
-            f"{counts[0]} on both")
+        log(f"{what}: store dumps equal ({n_rows} rows), version_count "
+            f"{counts[0]} on both (none: the engine does not count them)")
 
         # every read after compaction against the host scanner
         head = backend.current_revision()
@@ -1166,17 +1249,24 @@ def compact_phase(backend, store, top: int, n_keys: int, dev) -> dict:
             ("count", b"/registry/pods/", b"/registry/pods0", compact_rev),
             ("count", b"/events/", b"/events0", 0)]
         check_batch(batch, backend.list_batch(batch), oracle, head)
-        log("compact: every Range, Count and list_batch after compaction "
+        log(f"{what}: every Range, Count and list_batch after compaction "
             "equals the host scanner")
 
         # K3 against the plain version on the main path's own inputs
         args = scanner._victim_args(*marked[0])
-        m = victim_checks(args, measure_reps=50)
+        m = victim_checks(args, measure_reps=measure_reps)
         p, c, n = args[0].shape
-        log(describe("victim_mask", f"main path mirror, P={p}, C={c}, N={n}, "
-                     f"{m['victims']} victims", m))
-        stayed_on_device(scanner, rebuilds, "compact")
-        return {"launches": launches, "case": m}
+        if measure_reps:
+            log(describe("victim_mask", f"main path mirror, P={p}, C={c}, "
+                         f"N={n}, {m['victims']} victims", m))
+        else:
+            log(f"{what}: kernel victim_mask [P={p}, C={c}, N={n}, "
+                f"{m['victims']} victims]: mask and counts bit-identical to "
+                f"the plain version")
+        stayed_on_device(scanner, rebuilds, what)
+        return {"launches": launches, "case": m, "wall_s": dev_wall,
+                "host_wall_s": host_wall,
+                "phase_seconds": [dict(s.phase_seconds) for s in dev_stats]}
     finally:
         oracle.close()
         twin_backend.close()
@@ -1781,7 +1871,8 @@ REWATCH_MEAN_S = 450.0
 
 def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
                 n_writers: int, seed: int,
-                rewatch_s: float = REWATCH_MEAN_S) -> dict:
+                rewatch_s: float = REWATCH_MEAN_S, writer=write_load,
+                settle=None) -> dict:
     """(f) end to end: register watchers, drain them from consumer threads
     while writer threads write, and hold every watcher's events against
     ``match_oracle`` over the hub's full event stream.
@@ -1792,7 +1883,11 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
     many extra watchers unwatched and a new one registered from the next
     revision on a range of the same generator. A churned watcher's events
     must be the first of the oracle's from its start revision on (its
-    unwatch may cut them short, never skip one)."""
+    unwatch may cut them short, never skip one). ``writer(backend, thread,
+    n_ops, seed)`` writes one thread's share and returns the revisions of
+    its acknowledged writes; ``settle()``, when given, runs after the
+    writers and before the consumers stop, for writes that come later (the
+    retry FIFO's rewrites)."""
     hub = backend.watcher_hub
     rng = np.random.RandomState(seed)
     churn_rng = np.random.RandomState(seed + 1)
@@ -1810,7 +1905,15 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
             got[id(q)] = []  # before the hub can put anything
             return q
 
-        return backend.watch_range(s, e, start_rev, queue_factory=factory)
+        for attempt in range(50):
+            try:
+                return backend.watch_range(s, e, start_rev,
+                                           queue_factory=factory)
+            except StorageError:
+                # an injected read fault (chaos): a client watches again
+                if attempt == 49:
+                    raise
+                time.sleep(0.01)
 
     registered = []
     for i, (_w, s, e, r) in enumerate(fanout_population(n_watchers, n_broad,
@@ -1894,13 +1997,18 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(n_writers) as pool:
-            futs = [pool.submit(write_load, backend, t, n_writes // n_writers,
+            futs = [pool.submit(writer, backend, t, n_writes // n_writers,
                                 seed) for t in range(n_writers)]
             written = sorted(r for f in futs for r in f.result())
         writing.set()
         churner.join(timeout=60)
+        if settle is not None:
+            settle()
         deadline = time.monotonic() + 60
-        while not streamed or streamed[-1][-1].revision < written[-1]:
+        # every dealt revision through the ring into the hub: the last
+        # write's event and any later one (a retry's rewrite) streamed
+        while (not streamed or streamed[-1][-1].revision < written[-1]
+               or backend.flushed_revision() < backend.current_revision()):
             if time.monotonic() > deadline:
                 raise AssertionError("the hub never streamed the last write")
             time.sleep(0.01)
@@ -2117,6 +2225,646 @@ def fanout_phase(backend, dev, args) -> dict:
     return {"cases": cases, "watch": watch, "crossover": crossover}
 
 
+# ------------------------------------------------------------ phases g, h
+ROOT = Path(__file__).resolve().parent
+NATIVE_DIR = ROOT / "native"
+KBSTORED = NATIVE_DIR / "kvrpc" / "kbstored"
+#: what phase (g) builds: the engine's library and the storage daemon, not
+#: the HTTP/2 front, which links nghttp2 and OpenSSL
+NATIVE_TARGETS = ("libkbstore.so", "kvrpc/kbstored")
+#: the CLI's defaults for the deployed engines (kubebrain_tpu/cli.py):
+#: ``--native-partitions`` 4 (line 74) and ``--storage-pool`` 8 (line 41)
+NATIVE_PARTITIONS = 4
+REMOTE_POOL = 8
+#: the checked columns of a mirror
+MIRROR_HOST_COLUMNS = ("keys_host", "lens_host", "revs_host", "tomb_host",
+                       "ttl_host", "n_valid")
+MIRROR_DEVICE_COLUMNS = ("keys_dev", "revs_dev", "tomb_dev", "ttl_dev",
+                         "n_valid_dev")
+
+
+class NativeBuild:
+    """``make -C native`` of :data:`NATIVE_TARGETS`, started at once;
+    :meth:`wait` fails the run when make fails or a target is missing, and
+    returns the seconds."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            ["make", "-j2", "-C", str(NATIVE_DIR), *NATIVE_TARGETS],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def wait(self) -> float:
+        _out, err = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"make -C native failed:\n{err[-4000:]}")
+        for target in NATIVE_TARGETS:
+            if not (NATIVE_DIR / target).exists():
+                raise AssertionError(f"make -C native built no {target}")
+        return time.perf_counter() - self.t0
+
+
+def data_dir(name: str) -> Path:
+    """A fresh directory for ``name`` under the checkout's ``build/``."""
+    d = ROOT / "build" / "smoke" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+class Kbstored:
+    """A ``kbstored <port> [dir]`` process on a free port of localhost."""
+
+    def __init__(self, directory: Path | None = None):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        args = [str(KBSTORED), str(self.port)]
+        if directory is not None:
+            args.append(str(directory))
+        self.proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                                     stderr=subprocess.DEVNULL)
+        if b"READY" not in self.proc.stdout.readline():
+            self.close()
+            raise AssertionError(f"kbstored did not start: {args}")
+        self.address = f"127.0.0.1:{self.port}"
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def mirror_differences(a, b) -> list[str]:
+    """The columns in which two mirrors differ (host, device, the value
+    arenas, the snapshot)."""
+    diff = [c for c in MIRROR_HOST_COLUMNS
+            if not np.array_equal(getattr(a, c), getattr(b, c))]
+    diff += [c for c in MIRROR_DEVICE_COLUMNS
+             if not torch.equal(getattr(a, c), getattr(b, c))]
+    if len(a.val_arena) != len(b.val_arena) or not all(
+            np.array_equal(x, y) and np.array_equal(xo, yo)
+            for x, y, xo, yo in zip(a.val_arena, b.val_arena, a.val_offsets,
+                                    b.val_offsets)):
+        diff.append("values")
+    if (a.snapshot_ts, a.max_rev, a.encoding is None) != (
+            b.snapshot_ts, b.max_rev, b.encoding is None):
+        diff.append("snapshot")
+    return diff
+
+
+class _WithoutExport:
+    """An engine with its bulk export hidden, so a mirror build takes the
+    per-row path."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        if name == "export_mvcc":
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+
+def boot(store, what: str, config: BackendConfig | None = None) -> tuple:
+    """A Backend over ``store`` and the mirror's first publish, which must
+    take the engine's bulk export. Returns (backend, boot seconds)."""
+    t0 = time.perf_counter()
+    backend = Backend(store, config or BackendConfig())
+    backend.scanner.publish()
+    seconds = time.perf_counter() - t0
+    builds = dict(backend.scanner.mirror_builds)
+    m = backend.scanner._mirror
+    log(f"{what}: Backend up and mirror published in {seconds:.3f} s: "
+        f"{m.rows} rows in {m.partitions} partition(s), encoded="
+        f"{m.encoding is not None}; builds by path {builds}")
+    if builds != {"export": 1, "rows": 0}:
+        backend.close()
+        raise AssertionError(f"{what}: the mirror was not built by the "
+                             f"engine's bulk export: {builds}")
+    return backend, seconds
+
+
+def per_row_build(store, scanner, what: str) -> float:
+    """One mirror build from the same store on the per-row path, held
+    column for column against the published (exported) mirror; returns
+    its seconds."""
+    inner = store._inner.exclusive_client()
+    t0 = time.perf_counter()
+    lo, hi = coder.internal_range(b"", b"")
+    inner.export_mvcc(lo, hi, scanner._mirror.snapshot_ts, scanner._kw,
+                      coder.MAGIC, TOMBSTONE)
+    export_s = time.perf_counter() - t0
+    store.untracked = lambda: _WithoutExport(inner)
+    try:
+        t0 = time.perf_counter()
+        m = scanner._build_mirror_from_store()
+        seconds = time.perf_counter() - t0
+    finally:
+        del store.untracked
+    if scanner.mirror_builds["rows"] != 1:
+        raise AssertionError(f"{what}: the per-row build took another path")
+    diff = mirror_differences(m, scanner._mirror)
+    if diff:
+        raise AssertionError(f"{what}: the per-row mirror differs from the "
+                             f"exported one in {diff}")
+    log(f"{what}: a per-row build of the same store took {seconds:.3f} s and "
+        f"equals the exported mirror column for column; the export call "
+        f"alone {export_s:.3f} s")
+    return seconds
+
+
+RESTART_RANGES = (NS, PODS, (b"/events/", b"/events0"),
+                  (b"/registry/pods/ns07/pending-",
+                   b"/registry/pods/ns07/pending."))
+
+
+def response_set(backend, revs) -> list:
+    """Every Range, Count and ``list_batch`` answer of the restart check at
+    the revisions ``revs``, as comparable tuples."""
+    out = []
+    for rev in revs:
+        for s, e in RESTART_RANGES:
+            res = backend.list_(s, e, revision=rev)
+            out.append((s, e, rev, [(kv.key, kv.value, kv.revision)
+                                    for kv in res.kvs],
+                        backend.count(s, e, revision=rev)[0]))
+    batch = [("list", s, e, rev, 0) for s, e in RESTART_RANGES
+             for rev in revs] + [("count", *PODS, rev) for rev in revs]
+    for q, res in zip(batch, backend.list_batch(batch)):
+        if isinstance(res, BaseException):
+            raise res
+        out.append((q, res[0] if q[0] == "count" else
+                    [(kv.key, kv.value, kv.revision) for kv in res.kvs]))
+    return out
+
+
+def deployed_phase(store, what: str, rows, top: int, n_keys: int, dev,
+                   twin_factory) -> dict:
+    """(g1)/(g2) up to the restart: load, boot by export, a per-row build
+    beside it, the request set against the host scanner, and compaction
+    against the host scanner's on a twin of the same engine kind. Returns
+    the backend (open) and the numbers."""
+    load_s = load_rows(store.untracked(), rows, top)
+    log(f"{what}: {n_keys} user keys, {len(rows)} store rows loaded through "
+        f"the untracked {type(store._inner).__name__} in {load_s:.1f} s = "
+        f"{len(rows) / load_s:.0f} rows/s")
+    backend, boot_s = boot(store, what)
+    try:
+        rows_s = per_row_build(store, backend.scanner, what)
+        oracle = Scanner(store.untracked(), get_compact_revision=lambda _s: 0)
+        try:
+            served = serve_requests(backend, oracle, top, what)
+        finally:
+            oracle.close()
+        compacted = compact_phase(backend, store, top, n_keys, dev,
+                                  twin_factory=twin_factory, what=what,
+                                  measure_reps=0)
+    except BaseException:
+        backend.close()
+        raise
+    return {"backend": backend, "load_s": load_s, "boot_s": boot_s,
+            "per_row_build_s": rows_s, "served": served,
+            "compacted": compacted}
+
+
+def summary(res: dict) -> dict:
+    """The numbers of a (g) run worth keeping, as one JSON-able dict."""
+    lat = res["served"]["lat"]
+    c = res["compacted"]
+    return {"load_s": res["load_s"], "boot_s": res["boot_s"],
+            "per_row_build_s": res["per_row_build_s"],
+            "p50_ms": {k: statistics.median(v) * 1e3 for k, v in lat.items()},
+            "launches": {**res["served"]["launches"],
+                         "victim_mask": c["launches"]},
+            "compact_s": c["wall_s"], "host_compact_s": c["host_wall_s"],
+            "compact_phase_s": c["phase_seconds"],
+            **{k: v for k, v in res.items() if k.startswith("restart")}}
+
+
+def native_phase(rows, top: int, n_keys: int, dev) -> dict:
+    """(g1): ``cuda`` over ``native`` in the README's single-node shape, on
+    a data dir with fsync off, then a restart on the same dir."""
+    d = data_dir("native")
+    open_store = lambda: new_storage(
+        "cuda", inner="native", device=dev, data_dir=str(d), fsync=False,
+        inner_partitions=NATIVE_PARTITIONS)
+    store = open_store()
+    try:
+        res = deployed_phase(
+            store, "native", rows, top, n_keys, dev,
+            lambda: new_storage("native", partitions=NATIVE_PARTITIONS))
+        backend = res.pop("backend")
+        try:
+            revs = (0, top)
+            before = response_set(backend, revs)
+            head = backend.current_revision()
+        finally:
+            backend.close()
+    finally:
+        store.close()
+    t0 = time.perf_counter()
+    store = open_store()
+    reopen_s = time.perf_counter() - t0
+    try:
+        backend, boot_s = boot(store, "native restart")
+        try:
+            if backend.current_revision() != head:
+                raise AssertionError("native restart: revision "
+                                     f"{backend.current_revision()}, not "
+                                     f"{head}")
+            after = response_set(backend, (head, top))
+        finally:
+            backend.close()
+    finally:
+        store.close()
+        shutil.rmtree(d, ignore_errors=True)
+    if after != [_at(r, head) for r in before]:
+        raise AssertionError("native restart: a response differs from the "
+                             "one before the restart")
+    log(f"native restart: engine reopened (WAL and snapshot) in "
+        f"{reopen_s:.3f} s, Backend and mirror by export in {boot_s:.3f} s; "
+        f"all {len(after)} responses at revisions {head} and {top} equal "
+        f"those before the restart")
+    res.update(restart_reopen_s=reopen_s, restart_boot_s=boot_s)
+    return summary(res)
+
+
+def _at(resp: tuple, head: int) -> tuple:
+    """A response taken at revision 0 (the head) named by the head."""
+    if len(resp) == 2:
+        q, ans = resp
+        return ((*q[:3], q[3] or head, *q[4:]), ans)
+    s, e, rev, kvs, count = resp
+    return (s, e, rev or head, kvs, count)
+
+
+def remote_phase(rows, top: int, n_keys: int, dev) -> dict:
+    """(g2): ``cuda`` over ``remote``, a ``kbstored`` on a data dir, the
+    compaction's twin on a second, in-memory ``kbstored``."""
+    d = data_dir("kbstored")
+    daemon = Kbstored(d)
+    twin_daemon = Kbstored()
+    twins = []
+
+    def twin_factory():
+        twins.append(new_storage("remote", address=twin_daemon.address,
+                                 pool=REMOTE_POOL))
+        return twins[-1]
+
+    try:
+        store = new_storage("cuda", inner="remote", device=dev,
+                            address=daemon.address, pool=REMOTE_POOL)
+        try:
+            res = deployed_phase(store, "remote", rows, top, n_keys, dev,
+                                 twin_factory)
+            res.pop("backend").close()
+        finally:
+            store.close()
+    finally:
+        daemon.close()
+        twin_daemon.close()
+        shutil.rmtree(d, ignore_errors=True)
+    return summary(res)
+
+
+def deployed_phases(args, dev) -> dict:
+    """(g): (g1) and (g2) on the kube dataset of (c), ``--remote-keys``
+    deep for (g2); the native targets were built with the kernels."""
+    t0 = time.perf_counter()
+    rows, top = kube_dataset(args.keys, args.seed)
+    log(f"kube dataset regenerated in {time.perf_counter() - t0:.1f} s")
+    out = {"native": native_phase(rows, top, args.keys, dev)}
+    if args.remote_keys != args.keys:
+        del rows
+        rows, top = kube_dataset(args.remote_keys, args.seed)
+    out["remote"] = remote_phase(rows, top, args.remote_keys, dev)
+    for name, res in out.items():
+        log(f"(g) {name}: {json.dumps(res)}")
+    return out
+
+
+class ChaosLedger:
+    """What the chaos writers were told, per key: the acknowledged state
+    (value and revision; None once deleted), the values of writes that
+    failed definitely, and, for a key an uncertain write left unknown, the
+    values it may hold (None: absent)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.acked: dict[bytes, tuple | None] = {}
+        self.failed: dict[bytes, set] = {}
+        self.uncertain: dict[bytes, set] = {}
+        self.counts: collections.Counter = collections.Counter()
+
+
+def chaos_writer(ledger: ChaosLedger, deadline: float):
+    """A :func:`watch_drive` writer that writes until ``deadline``
+    (monotonic clock) and keeps going through injected faults: creates,
+    updates and deletes in its own key space, each outcome recorded in
+    ``ledger``; a key an uncertain write touched is left alone after."""
+
+    def write(backend, thread: int, n_ops: int, seed: int) -> list:
+        rng = random.Random(seed * 1000 + thread + 17)
+        live: dict[bytes, int] = {}
+        lost: set[bytes] = set()
+        revs = []
+        seq = 0
+        while time.monotonic() < deadline and len(revs) < n_ops:
+            seq += 1
+            value = b"chaos-%d-%d" % (thread, seq)
+            roll = rng.random()
+            if live and roll < 0.3:
+                kind, k = "update", rng.choice(list(live))
+            elif live and roll < 0.45:
+                kind, k = "delete", rng.choice(list(live))
+            else:
+                kind = "create"
+                while True:
+                    k = b"/registry/%s/%s/obj-%05d" % (
+                        rng.choice(FANOUT_KINDS), rng.choice(FANOUT_NAMESPACES),
+                        16 * rng.randrange(256) + thread % 16)
+                    if k not in live and k not in lost:
+                        break
+            with ledger.lock:
+                prev = ledger.acked.get(k)
+            try:
+                if kind == "create":
+                    rev = live[k] = backend.create(k, value)
+                    state = (value, rev)
+                elif kind == "update":
+                    rev = live[k] = backend.update(k, value, live[k])
+                    state = (value, rev)
+                else:
+                    rev = backend.delete(k, live.pop(k))[0]
+                    state = None
+            except UncertainResultError:
+                live.pop(k, None)
+                lost.add(k)
+                with ledger.lock:
+                    ledger.uncertain[k] = {prev[0] if prev else None,
+                                           None if kind == "delete" else value}
+                    ledger.counts["uncertain"] += 1
+                continue
+            except StorageError:
+                if kind == "delete":
+                    live[k] = prev[1]
+                with ledger.lock:
+                    ledger.failed.setdefault(k, set()).add(value)
+                    ledger.counts["failed"] += 1
+                continue
+            revs.append(rev)
+            with ledger.lock:
+                ledger.acked[k] = state
+                ledger.counts["acked"] += 1
+        return revs
+
+    return write
+
+
+def check_ledger(backend, ledger: ChaosLedger) -> dict:
+    """Every acknowledged write reads back, no definitely failed write is
+    present, and every key an uncertain write touched holds one of the
+    values it may."""
+    def current(k):
+        try:
+            kv = backend.get(k)
+            return kv.value, kv.revision
+        except KeyNotFoundError:
+            return None
+
+    lost = 0
+    for k, state in ledger.acked.items():
+        if k not in ledger.uncertain and current(k) != state:
+            lost += 1
+    if lost:
+        raise AssertionError(f"chaos: {lost} acknowledged writes do not read "
+                             f"back")
+    present = [k for k, vals in ledger.failed.items()
+               if (current(k) or (None,))[0] in vals]
+    if present:
+        raise AssertionError(f"chaos: {len(present)} definitely failed "
+                             f"writes are present")
+    wrong = [k for k, vals in ledger.uncertain.items()
+             if (current(k) or (None,))[0] not in vals]
+    if wrong:
+        raise AssertionError(f"chaos: {len(wrong)} keys of uncertain writes "
+                             f"hold a value no write gave them")
+    return dict(ledger.counts)
+
+
+def head_batch(top: int) -> list:
+    """:func:`request_batch` with every query at the head revision (the
+    chaos phase compacts past the others)."""
+    return [(*q[:3], 0, *q[4:]) for q in request_batch(top)]
+
+
+def chaos_reads(backend, stop: threading.Event, top: int, counts) -> None:
+    """Range, Count and ``list_batch`` between the writers' writes until
+    ``stop``; a read failed by an injected fault is counted, not raised."""
+    batch = head_batch(top)
+    while not stop.is_set():
+        for fn in (lambda: backend.list_(*NS), lambda: backend.count(*PODS),
+                   lambda: backend.list_batch(batch)):
+            try:
+                res = fn()
+                if isinstance(res, list):
+                    for r in res:
+                        if isinstance(r, StorageError):
+                            counts["read_errors"] += 1
+                        elif isinstance(r, BaseException):
+                            raise r
+                counts["reads"] += 1
+            except StorageError:
+                counts["read_errors"] += 1
+
+
+def wait_serving(scanner, what: str, timeout: float = 120.0) -> float:
+    """Poll until the mirror serves again (a degraded read kicks the
+    rebuild); returns the seconds waited."""
+    t0 = time.monotonic()
+    while True:
+        with scanner._mlock:
+            serving = (scanner._mirror_state == "serving"
+                       and not scanner._force_rebuild)
+        if serving:
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: the mirror never left quarantine "
+                                 f"({scanner._mirror_state})")
+        scanner._degraded()
+        time.sleep(0.05)
+
+
+def resolve_retries(backend, what: str, timeout: float = 60.0) -> int:
+    """Drain the retry FIFO by read-back; returns how many it held."""
+    held = len(backend.retry)
+    deadline = time.monotonic() + timeout
+    while len(backend.retry):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: {len(backend.retry)} uncertain "
+                                 f"writes never resolved")
+        backend.retry.process_ready(now=time.monotonic() + 3600.0)
+        time.sleep(0.01)
+    return held
+
+
+def chaos_run(preset: str, args, dev) -> dict:
+    """(h) for one preset: ``cuda`` over native with the inner engine
+    wrapped by ``FaultyStorage`` through ``inner_wrap``, the plane armed
+    over a watch drive with readers and one compaction; then, after the
+    horizon, the ledger, the retry FIFO, the mirror's recovery, every
+    response against the host scanner and K1-K3 launching again."""
+    what = f"chaos [{preset}]"
+    plane = FaultPlane(generate(preset, args.seed, args.chaos_horizon))
+    d = data_dir(f"chaos-{preset}")
+    store = new_storage("cuda", inner="native", device=dev, data_dir=str(d),
+                        fsync=False, inner_partitions=NATIVE_PARTITIONS,
+                        merge_threshold=args.chaos_merge_threshold,
+                        inner_wrap=lambda s: FaultyStorage(s, plane))
+    backend = None
+    try:
+        rows, top = kube_dataset(args.chaos_keys, args.seed)
+        load_rows(store.untracked(), rows, top)
+        del rows
+        backend, _boot = boot(store, what, BackendConfig(
+            fanout_matcher=DeviceFanout(device=dev)))
+        scanner = backend.scanner
+        scanner.set_fault_plane(plane)
+        plane.bind_hub(backend.watcher_hub)
+        ledger = ChaosLedger()
+        reads: collections.Counter = collections.Counter()
+        stop = threading.Event()
+        reader = threading.Thread(target=chaos_reads,
+                                  args=(backend, stop, top, reads))
+        compactions: list = []
+
+        def compact_midway():
+            # one client compaction inside the horizon (the merge preset's
+            # compaction-failure window covers most of it)
+            time.sleep(args.chaos_horizon / 2)
+            try:
+                compactions.append(backend.compact(
+                    backend.current_revision() - 50))
+            except StorageError as e:
+                compactions.append(e)
+
+        compactor = threading.Thread(target=compact_midway)
+        settled = {}
+
+        def settle():
+            # past the horizon, readers and the compaction stopped, the
+            # retry FIFO drained: its rewrites reach the watchers too
+            time.sleep(max(0.0, deadline - time.monotonic()))
+            stop.set()
+            reader.join(timeout=120)
+            compactor.join(timeout=300)
+            settled["horizon_s"] = time.monotonic() - t0
+            settled["held"] = resolve_retries(backend, what)
+
+        plane.arm()
+        t0 = time.monotonic()
+        deadline = t0 + args.chaos_horizon
+        reader.start()
+        compactor.start()
+        try:
+            drive = watch_drive(backend, args.chaos_watchers, 70,
+                                10 ** 9, args.writers, args.seed,
+                                writer=chaos_writer(ledger, deadline),
+                                settle=settle)
+        finally:
+            stop.set()
+            reader.join(timeout=120)
+            compactor.join(timeout=300)
+        if reader.is_alive() or compactor.is_alive():
+            raise AssertionError(f"{what}: a reader or the compaction did "
+                                 f"not stop")
+        horizon_s, held = settled["horizon_s"], settled["held"]
+        recover_s = wait_serving(scanner, what)
+        outcomes = check_ledger(backend, ledger)
+        injected = plane.snapshot()
+        log(f"{what}: horizon {horizon_s:.1f} s, injected {injected}; "
+            f"writes {outcomes}; reads {dict(reads)}; compaction midway "
+            f"{compactions}; quarantines {scanner._poison_epoch}, degraded "
+            f"{scanner.degraded_seconds_total:.3f} s, full rebuilds "
+            f"{scanner.full_rebuild_total}, background rebuilds "
+            f"{scanner.rebuild_bg_count}, merge errors "
+            f"{scanner.merge_bg_errors}, compaction errors "
+            f"{scanner.compact_errors}; {held} uncertain writes resolved "
+            f"through the retry FIFO; serving again {recover_s:.3f} s after "
+            f"the drive; every acknowledged write reads back, no definitely "
+            f"failed write is present; watch drive: {drive['watchers']} "
+            f"watchers, {drive['events']} events, {drive['delivered']} "
+            f"deliveries, every watcher equal to match_oracle, none dropped")
+        if not injected or not outcomes.get("acked"):
+            raise AssertionError(f"{what}: nothing was injected or "
+                                 f"acknowledged")
+        if preset == "storage" and scanner._poison_epoch <= 0:
+            raise AssertionError(f"{what}: no uncertain write quarantined "
+                                 f"the mirror")
+        # after recovery: the request set against the host scanner, then a
+        # compaction, with K1-K3 launching
+        scan_kernels.reset_launch_counts()
+        compact_kernels.reset_launch_counts()
+        oracle = Scanner(store.untracked(), get_compact_revision=lambda _s: 0)
+        try:
+            head = backend.current_revision()
+            for s, e in RESTART_RANGES + (
+                    (b"/registry/", b"/registry0"),):
+                same_kvs(backend.list_(s, e).kvs, oracle.range_(s, e, head)[0],
+                         f"{what}: range {s!r}")
+                if backend.count(s, e)[0] != oracle.count(s, e, head):
+                    raise AssertionError(f"{what}: count {s!r} differs")
+            batch = head_batch(top)
+            check_batch(batch, backend.list_batch(batch), oracle, head)
+            done = backend.compact(head)
+            same_kvs(backend.list_(b"/registry/", b"/registry0").kvs,
+                     oracle.range_(b"/registry/", b"/registry0",
+                                   backend.current_revision())[0],
+                     f"{what}: post-compaction range")
+        finally:
+            oracle.close()
+        launches = {"scan_mask": scan_kernels.visibility_mask_batch.launches,
+                    "scan_mask_q": scan_kernels.visibility_mask_batch_q.launches,
+                    "victim_mask": compact_kernels.victim_mask_batch.launches}
+        log(f"{what}: after recovery every response equals the host scanner, "
+            f"compacted to {done}; launches {launches}")
+        if min(launches.values()) <= 0 or scanner._mirror_state != "serving":
+            raise AssertionError(f"{what}: after recovery a kernel did not "
+                                 f"launch or the mirror is not serving: "
+                                 f"{launches}, {scanner._mirror_state}")
+        return {"injected": injected, "writes": outcomes, "reads": dict(reads),
+                "quarantines": scanner._poison_epoch,
+                "degraded_s": scanner.degraded_seconds_total,
+                "full_rebuilds": scanner.full_rebuild_total,
+                "background_rebuilds": scanner.rebuild_bg_count,
+                "retry_resolved": held, "recover_s": recover_s,
+                "launches_after": launches}
+    finally:
+        plane.close()
+        if backend is not None:
+            backend.close()
+        store.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def chaos_phase(args, dev) -> dict:
+    """(h): the chaos run under the ``storage`` preset, then ``merge``."""
+    fanout_kernels.reset_launch_counts()
+    out = {}
+    for preset in ("storage", "merge"):
+        out[preset] = chaos_run(preset, args, dev)
+    out["fanout_dispatch"] = fanout_kernels.fanout_dispatch.launches
+    if out["fanout_dispatch"] <= 0:
+        raise AssertionError("chaos: the watch drive never reached K4")
+    log(f"(h): {json.dumps(out)}")
+    return out
+
+
 AB_CHILD = """
 import importlib.util, json, sys
 tree, script = sys.argv[1:3]
@@ -2178,8 +2926,15 @@ def main() -> int:
     ap.add_argument("--big-watchers", type=int, default=100_000)
     ap.add_argument("--big-events", type=int, default=4096)
     ap.add_argument("--deep-events", type=int, default=40_000)
-    ap.add_argument("--writes", type=int, default=20_000)
+    ap.add_argument("--writes", type=int, default=10_000)
     ap.add_argument("--writers", type=int, default=16)
+    ap.add_argument("--remote-keys", type=int, default=250_000,
+                    help="user keys of (g2): its load and compaction go "
+                         "over TCP one request at a time")
+    ap.add_argument("--chaos-keys", type=int, default=100_000)
+    ap.add_argument("--chaos-watchers", type=int, default=1000)
+    ap.add_argument("--chaos-horizon", type=float, default=20.0)
+    ap.add_argument("--chaos-merge-threshold", type=int, default=256)
     ap.add_argument("--watch-ab", metavar="DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2190,32 +2945,62 @@ def main() -> int:
 
     dev = resolve_device()
 
+    seconds = {}
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    native = NativeBuild()  # g++ beside nvcc
+    try:
+        _build.build_all()
+        log(f"build: kernels {time.perf_counter() - t0:.1f} s")
+    finally:
+        native_s = native.wait()
+    log(f"build: make -C native {' '.join(NATIVE_TARGETS)} {native_s:.1f} s")
+    seconds["a"] = time.perf_counter() - t0
     for name, text in _build.BUILD_LOG.items():
         log(f"ptxas [{name}]:\n{text.strip()}")
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    t0 = time.perf_counter()
     layouts = bench_layouts(args.kernel_keys)
     bench = kernel_phase(layouts, args.kernel_revs, dev)
     victim_bench = victim_phase(layouts, args.kernel_revs, dev)
     del layouts
+    seconds["b, d"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     store, top = load_store(args.keys, args.seed, dev)
     backend = Backend(store, BackendConfig(
         fanout_matcher=DeviceFanout(device=dev)))
     try:
         launches, main_cases = serve_phase(backend, store, top, dev)
+        seconds["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         compacted = compact_phase(backend, store, top, args.keys, dev)
+        seconds["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         fanned = fanout_phase(backend, dev, args)
+        seconds["f"] = time.perf_counter() - t0
     finally:
         backend.close()
         store.close()
+    t0 = time.perf_counter()
+    deployed = deployed_phases(args, dev)
+    seconds["g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chaos = chaos_phase(args, dev)
+    seconds["h"] = time.perf_counter() - t0
+    log(f"phase seconds: {json.dumps(seconds)}")
     launches["victim_mask"] = compacted["launches"]
     main_cases["victim_mask"] = compacted["case"]
+    # the launches of the deployed engines' and the chaos phases' paths
+    for res in deployed.values():
+        for name, n in res["launches"].items():
+            launches[name] += n
+    for res in (chaos["storage"], chaos["merge"]):
+        for name, n in res["launches_after"].items():
+            launches[name] += n
     launches.update(fanned["watch"]["launches"])
+    launches["fanout_dispatch"] += chaos["fanout_dispatch"]
     main_cases.update(fanned["watch"]["cases"])
     errs = {name: [v["max_abs_err"] for (n, _l), v in bench.items() if n == name]
             for name in ("scan_mask", "scan_mask_q")}

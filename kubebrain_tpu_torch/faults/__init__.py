@@ -1,0 +1,51 @@
+"""Deterministic fault injection + chaos-mode replay (docs/faults.md).
+
+Three pieces, mirroring the reference's robustness posture (the whole
+``retry/`` backend component exists to survive storage faults):
+
+- :mod:`.schedule` — pure, seeded fault schedules (the replay identity:
+  same preset+seed+horizon ⇒ byte-identical trace sha);
+- :mod:`.plane` — the armed runtime plane answering injection decisions
+  at every boundary (storage ops, endpoint RPCs, watch streams, the device
+  mirror's merge machinery), inert until armed;
+- :mod:`.inject` — the ``FaultyStorage`` engine decorator injecting the
+  storage error taxonomy (latency / definite error / *uncertain*
+  outcome) under any engine.
+
+The chaos runner (``make bench-cluster FAULTS=<preset>``) replays a
+workload against a fault-armed server and proves the keystone invariant:
+every client-acknowledged write is present in a final authoritative scan
+and every definite error is absent — ambiguous outcomes may be either
+(the linearizability discipline of tests/test_linearizability.py).
+"""
+
+from .inject import FaultyStorage, wrap_engine
+from .plane import FaultInjectedError, FaultPlane
+from .schedule import (
+    ALL_KINDS,
+    CONN_DROP,
+    ENCODE_OVERFLOW,
+    FENCE_TIMEOUT,
+    LEADER_UNREACH,
+    MERGE_FAIL,
+    MERGE_SUPPRESS,
+    PRESETS,
+    REPL_RESET,
+    REPLICA_KINDS,
+    STORAGE_ERROR,
+    STORAGE_LATENCY,
+    STORAGE_UNCERTAIN,
+    WATCH_RESET,
+    FaultSchedule,
+    FaultWindow,
+    generate,
+)
+
+__all__ = [
+    "FaultyStorage", "wrap_engine", "FaultPlane", "FaultInjectedError",
+    "FaultSchedule", "FaultWindow", "generate", "PRESETS", "ALL_KINDS",
+    "STORAGE_LATENCY", "STORAGE_ERROR", "STORAGE_UNCERTAIN",
+    "WATCH_RESET", "CONN_DROP", "MERGE_FAIL", "MERGE_SUPPRESS",
+    "ENCODE_OVERFLOW", "REPL_RESET", "LEADER_UNREACH", "FENCE_TIMEOUT",
+    "REPLICA_KINDS",
+]

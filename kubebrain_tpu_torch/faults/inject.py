@@ -1,0 +1,216 @@
+"""Engine decorator injecting the storage error taxonomy at the op
+boundary — the fault-plane twin of ``storage/metrics_wrap.py``.
+
+``FaultyStorage`` wraps any engine and, per boundary call, asks the
+:class:`~kubebrain_tpu_torch.faults.plane.FaultPlane` for a decision:
+
+- ``latency``  — sleep, then delegate (slow disk / network hiccup);
+- ``error``    — raise :class:`FaultInjectedError` WITHOUT delegating: a
+  definite failure, provably nothing applied (the keystone consistency
+  check's "definite errors must be absent" side);
+- ``uncertain_applied`` — delegate (the op really commits), then raise
+  ``UncertainResultError``: the commit landed but the caller cannot know;
+- ``uncertain_dropped`` — raise ``UncertainResultError`` without
+  delegating: the commit did NOT land, and the caller cannot know that
+  either.
+
+The two uncertain arms are indistinguishable above this layer by
+construction — exactly the shape ``backend/retry.py``'s async FIFO
+read-back repair and the TSO revision-gap accounting exist for. Under
+the ``cuda`` engine this decorator wraps the *inner host engine* (below
+``CudaKvStorage``, through the factory's ``inner_wrap``) so injected uncertainty exercises the mirror's
+quarantine/rebuild state machine, not just the client surface.
+
+Group commits (``write_batch``) get PER-OP injection: faulted members are
+carved out of the engine round trip (definite/dropped members are never
+applied; applied-uncertain members ride a real engine commit) and their
+outcomes spliced back in op order, so one poisoned rider fails alone and
+the group's survivors commit normally.
+"""
+
+from __future__ import annotations
+
+import time
+
+from .. import storage as _storage
+from ..storage import BatchWrite, KvStorage, UncertainResultError
+from .plane import FaultInjectedError, FaultPlane
+
+
+class FaultyStorage(KvStorage):
+    def __init__(self, inner: KvStorage, plane: FaultPlane) -> None:
+        self._inner = inner
+        self._plane = plane
+        # capability mirroring (the metrics_wrap pattern): hasattr() on this
+        # wrapper must answer exactly like the wrapped engine
+        if hasattr(inner, "mvcc_write"):
+            self.mvcc_write = self._mvcc_write_faulty
+        if hasattr(inner, "mvcc_delete"):
+            self.mvcc_delete = self._mvcc_delete_faulty
+        if hasattr(inner, "write_batch"):
+            self.write_batch = self._write_batch_faulty
+        if hasattr(inner, "prune_versions"):
+            self.prune_versions = inner.prune_versions
+        if hasattr(inner, "export_mvcc"):
+            self.export_mvcc = inner.export_mvcc
+
+    # ------------------------------------------------------------- decisions
+    def _write_gate(self):
+        """Pre-apply write decision. Returns True when the op must ALSO be
+        applied before raising (uncertain_applied); raises for the
+        definite/dropped arms; sleeps for latency."""
+        d = self._plane.decide_storage(write=True)
+        if d is None:
+            return False
+        kind, param = d
+        if kind == "latency":
+            time.sleep(param)
+            return False
+        if kind == "error":
+            raise FaultInjectedError("injected storage error (definite)")
+        if kind == "uncertain_dropped":
+            raise UncertainResultError("injected uncertain outcome")
+        return True  # uncertain_applied: caller applies, then raises
+
+    def _read_gate(self) -> None:
+        d = self._plane.decide_storage(write=False)
+        if d is None:
+            return
+        kind, param = d
+        if kind == "latency":
+            time.sleep(param)
+            return
+        raise FaultInjectedError("injected storage read error")
+
+    # ------------------------------------------------------------ fast paths
+    def _mvcc_write_faulty(self, *args, **kwargs):
+        raise_after = self._write_gate()
+        out = self._inner.mvcc_write(*args, **kwargs)
+        if raise_after:
+            raise UncertainResultError("injected uncertain outcome (applied)")
+        return out
+
+    def _mvcc_delete_faulty(self, *args, **kwargs):
+        raise_after = self._write_gate()
+        out = self._inner.mvcc_delete(*args, **kwargs)
+        if raise_after:
+            raise UncertainResultError("injected uncertain outcome (applied)")
+        return out
+
+    def _write_batch_faulty(self, ops: list) -> list:
+        """Per-op injection with the survivors committed in ONE inner round
+        trip; outcomes aligned with ``ops`` (the engine write_batch
+        contract — ``("uncertain", exc)`` members ride the retry FIFO)."""
+        out: list = [None] * len(ops)
+        send: list[tuple[int, tuple]] = []
+        uncertain_applied: list[int] = []
+        for i, op in enumerate(ops):
+            d = self._plane.decide_storage(write=True)
+            if d is None:
+                send.append((i, op))
+                continue
+            kind, param = d
+            if kind == "latency":
+                time.sleep(param)
+                send.append((i, op))
+            elif kind == "error":
+                out[i] = ("error",
+                          FaultInjectedError("injected storage error"))
+            elif kind == "uncertain_dropped":
+                out[i] = ("uncertain",
+                          UncertainResultError("injected uncertain outcome"))
+            else:  # uncertain_applied: commit it, report uncertainty
+                send.append((i, op))
+                uncertain_applied.append(i)
+        if send:
+            results = self._inner.write_batch([op for _i, op in send])
+            for (i, _op), res in zip(send, results):
+                out[i] = res
+        for i in uncertain_applied:
+            out[i] = ("uncertain",
+                      UncertainResultError("injected uncertain (applied)"))
+        return out
+
+    # ---------------------------------------------------------- engine iface
+    def get_timestamp_oracle(self) -> int:
+        return self._inner.get_timestamp_oracle()
+
+    def get_partitions(self, start, end):
+        return self._inner.get_partitions(start, end)
+
+    def get(self, key, snapshot_ts=None):
+        self._read_gate()
+        return self._inner.get(key, snapshot_ts)
+
+    def iter(self, start, end, snapshot_ts=None, limit=0):
+        self._read_gate()
+        return self._inner.iter(start, end, snapshot_ts, limit)
+
+    def begin_batch_write(self) -> BatchWrite:
+        return _FaultyBatch(self._inner.begin_batch_write(), self)
+
+    def delete(self, key):
+        raise_after = self._write_gate()
+        self._inner.delete(key)
+        if raise_after:
+            raise UncertainResultError("injected uncertain outcome (applied)")
+
+    def del_current(self, key, expected_value):
+        raise_after = self._write_gate()
+        self._inner.del_current(key, expected_value)
+        if raise_after:
+            raise UncertainResultError("injected uncertain outcome (applied)")
+
+    def support_ttl(self) -> bool:
+        return self._inner.support_ttl()
+
+    def exclusive_client(self) -> KvStorage:
+        return FaultyStorage(self._inner.exclusive_client(), self._plane)
+
+    def make_scanner(self, **kwargs):
+        return self._inner.make_scanner(**kwargs)
+
+    def close(self) -> None:
+        self._inner.close()
+
+
+class _FaultyBatch(BatchWrite):
+    """Records ops on the inner batch; the injection decision happens at
+    commit (the atomic boundary — a batch either applies whole or not)."""
+
+    def __init__(self, inner: BatchWrite, owner: FaultyStorage) -> None:
+        self._inner = inner
+        self._owner = owner
+
+    def put_if_not_exist(self, key, value, ttl_seconds=0):
+        self._inner.put_if_not_exist(key, value, ttl_seconds)
+
+    def cas(self, key, new_value, old_value, ttl_seconds=0):
+        self._inner.cas(key, new_value, old_value, ttl_seconds)
+
+    def put(self, key, value, ttl_seconds=0):
+        self._inner.put(key, value, ttl_seconds)
+
+    def delete(self, key):
+        self._inner.delete(key)
+
+    def del_current(self, key, expected_value):
+        self._inner.del_current(key, expected_value)
+
+    def commit(self):
+        raise_after = self._owner._write_gate()
+        self._inner.commit()
+        if raise_after:
+            raise UncertainResultError("injected uncertain outcome (applied)")
+
+
+def wrap_engine(store: KvStorage, plane: FaultPlane) -> KvStorage:
+    return FaultyStorage(store, plane)
+
+
+# the registry entry exists mainly so tests can compose engines by name
+_storage.register_engine(
+    "faulty",
+    lambda inner="memkv", plane=None, **kw: FaultyStorage(
+        _storage.new_storage(inner, **kw), plane),
+)

@@ -1,0 +1,208 @@
+"""Deterministic fault schedules: the chaos-mode analogue of the workload
+generator (docs/faults.md).
+
+``generate(preset, seed, horizon_s)`` is a pure function: one seeded
+``random.Random`` lays a set of :class:`FaultWindow` records over a real-
+time horizon and the canonical byte trace's sha256 is the fault plane's
+replay identity — same (preset, seed, horizon) ⇒ byte-identical schedule,
+re-checked by the chaos runner on every run exactly like the workload
+trace sha. This module holds no unseeded randomness and reads no
+wall clock — arming (mapping window offsets onto the monotonic
+clock) happens at runtime in :mod:`.plane`, never here.
+
+Window times are REAL milliseconds since the plane was armed (the chaos
+runner arms the plane when replay starts, so windows align with replay
+wall time regardless of preload cost). ``rate`` is the per-boundary-call
+injection probability for storage faults, the per-tick firing probability
+for watch resets, and the per-RPC abort probability for connection drops.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import random
+from dataclasses import dataclass
+from typing import Iterator
+
+# ------------------------------------------------------------ fault taxonomy
+#: storage-op boundary (create/update/delete/write_batch/get/iter/scan)
+STORAGE_LATENCY = "storage_latency"    # param = added latency seconds
+STORAGE_ERROR = "storage_error"        # definite failure, nothing applied
+STORAGE_UNCERTAIN = "storage_uncertain"  # outcome unknowable: may have landed
+#: endpoint boundary
+WATCH_RESET = "watch_reset"            # server-side watch stream reset
+CONN_DROP = "conn_drop"                # RPC aborted as if the conn dropped
+#: device-engine boundary (the mirror's merge and compaction)
+MERGE_FAIL = "merge_fail"              # background delta merge raises
+MERGE_SUPPRESS = "merge_suppress"      # merges suppressed: delta overlay grows
+ENCODE_OVERFLOW = "encode_overflow"    # forced EncodeOverflow -> re-dictionary
+COMPACT_FAIL = "compact_fail"          # compaction's mirror merge raises
+#: replica (follower-role) boundary — docs/replication.md
+REPL_RESET = "repl_reset"              # replication stream torn down client-side
+LEADER_UNREACH = "leader_unreachable"  # fence/forward/stream gated off
+FENCE_TIMEOUT = "fence_timeout"        # linearizable-read fences forced stale
+
+ALL_KINDS = (
+    STORAGE_LATENCY, STORAGE_ERROR, STORAGE_UNCERTAIN,
+    WATCH_RESET, CONN_DROP,
+    MERGE_FAIL, MERGE_SUPPRESS, ENCODE_OVERFLOW, COMPACT_FAIL,
+    REPL_RESET, LEADER_UNREACH, FENCE_TIMEOUT,
+)
+
+#: kinds that only act on a --role follower process (the chaos runner arms
+#: followers with the `replica` preset; on a leader they never fire)
+REPLICA_KINDS = (REPL_RESET, LEADER_UNREACH, FENCE_TIMEOUT)
+
+#: kinds that fire at the storage write boundary
+WRITE_KINDS = (STORAGE_LATENCY, STORAGE_ERROR, STORAGE_UNCERTAIN)
+#: kinds that fire at the storage read boundary (reads are never uncertain)
+READ_KINDS = (STORAGE_LATENCY, STORAGE_ERROR)
+
+PRESETS = ("none", "smoke", "storage", "watch", "merge", "full", "replica")
+
+
+@dataclass(frozen=True)
+class FaultWindow:
+    """One active-fault interval: ``kind`` fires with probability ``rate``
+    per eligible boundary call while armed-elapsed time is in
+    [t0_ms, t1_ms). ``param`` is kind-specific (latency seconds, watchers
+    per reset tick)."""
+
+    kind: str
+    t0_ms: int
+    t1_ms: int
+    rate: float
+    param: float = 0.0
+
+    def to_line(self) -> bytes:
+        return b"%s %09d %09d %.6f %.6f" % (
+            self.kind.encode(), self.t0_ms, self.t1_ms, self.rate, self.param)
+
+    def active(self, t_ms: int) -> bool:
+        return self.t0_ms <= t_ms < self.t1_ms
+
+
+@dataclass(frozen=True)
+class FaultSchedule:
+    preset: str
+    seed: int
+    horizon_ms: int
+    windows: tuple[FaultWindow, ...]
+
+    def trace_bytes(self) -> bytes:
+        head = b"kubebrain-faults/v1 %s seed=%d horizon=%d\n" % (
+            self.preset.encode(), self.seed, self.horizon_ms)
+        return head + b"\n".join(w.to_line() for w in self.windows) + b"\n"
+
+    def sha256(self) -> str:
+        return hashlib.sha256(self.trace_bytes()).hexdigest()
+
+    def kinds(self) -> tuple[str, ...]:
+        seen: list[str] = []
+        for w in self.windows:
+            if w.kind not in seen:
+                seen.append(w.kind)
+        return tuple(seen)
+
+    def active(self, t_ms: int, kind: str) -> "Iterator[FaultWindow]":
+        for w in self.windows:
+            if w.kind == kind and w.active(t_ms):
+                yield w
+
+    def to_dict(self) -> dict:
+        return {
+            "preset": self.preset,
+            "seed": self.seed,
+            "horizon_ms": self.horizon_ms,
+            "sha256": self.sha256(),
+            "windows": len(self.windows),
+            "kinds": list(self.kinds()),
+        }
+
+
+def _spread(rng: random.Random, horizon_ms: int, kind: str, n: int,
+            frac: float, rate: float, param: float = 0.0,
+            lo: float = 0.0, hi: float = 1.0) -> list[FaultWindow]:
+    """``n`` windows of ``kind``, each ~``frac`` of the horizon long,
+    placed by the seeded rng inside ``[lo, hi]`` of the horizon. Windows
+    are clamped inside the horizon so a post-horizon grace period is
+    always fault-free (recovery + the final authoritative scan must run
+    against a healthy plane)."""
+    out: list[FaultWindow] = []
+    lo_ms, hi_ms = int(horizon_ms * lo), int(horizon_ms * hi)
+    width = max(1, int((hi_ms - lo_ms) * frac))
+    for _ in range(n):
+        t0 = lo_ms + rng.randrange(max(1, hi_ms - lo_ms - width))
+        out.append(FaultWindow(kind, t0, min(hi_ms, t0 + width),
+                               rate, param))
+    return out
+
+
+def generate(preset: str, seed: int, horizon_s: float) -> FaultSchedule:
+    """Pure schedule generation — same arguments ⇒ byte-identical windows
+    (the chaos determinism gate asserts the sha twice per run)."""
+    if preset not in PRESETS:
+        raise ValueError(f"unknown fault preset {preset!r}; have {PRESETS}")
+    if horizon_s <= 0:
+        raise ValueError("horizon_s must be > 0")
+    horizon_ms = int(horizon_s * 1000)
+    rng = random.Random(seed)
+    windows: list[FaultWindow] = []
+    if preset in ("storage", "smoke", "full"):
+        heavy = preset == "full"
+        windows += _spread(rng, horizon_ms, STORAGE_LATENCY,
+                           2 if heavy else 1, 0.25, 0.5 if heavy else 0.3,
+                           param=0.05 if heavy else 0.02)
+        windows += _spread(rng, horizon_ms, STORAGE_ERROR,
+                           2 if heavy else 1, 0.2, 0.25 if heavy else 0.15)
+        windows += _spread(rng, horizon_ms, STORAGE_UNCERTAIN,
+                           2 if heavy else 1, 0.25, 0.25 if heavy else 0.15)
+    if preset in ("watch", "smoke", "full"):
+        heavy = preset == "full"
+        # rate = per-0.25s-tick firing probability; param = resets per fire
+        windows += _spread(rng, horizon_ms, WATCH_RESET,
+                           2 if heavy else 1, 0.3, 0.8,
+                           param=4 if heavy else 2)
+        windows += _spread(rng, horizon_ms, CONN_DROP,
+                           2 if heavy else 1, 0.15, 0.3 if heavy else 0.15)
+    if preset in ("merge", "smoke", "full"):
+        heavy = preset == "full"
+        # the merge-machinery windows are laid DISJOINT (fail in the first
+        # half, suppress in the second): an overlapping suppress window
+        # would starve the fail window of merges to fail on small runs
+        windows += _spread(rng, horizon_ms, MERGE_FAIL,
+                           1, 0.6, 1.0, lo=0.0, hi=0.5)
+        windows += _spread(rng, horizon_ms, MERGE_SUPPRESS,
+                           1, 0.8, 1.0, lo=0.55, hi=1.0)
+        # clear of the horizon's edges: the first real seconds of a cold
+        # replay are kernel-compile stall (no engine writes to overflow)
+        windows += _spread(rng, horizon_ms, ENCODE_OVERFLOW,
+                           1, 0.3, 0.5 if heavy else 0.25, lo=0.2, hi=0.9)
+        # compaction is CLIENT-cadenced (the workload's COMPACT ops), so
+        # the window is laid wide at rate 1.0: any compaction landing in
+        # ~80% of the horizon exercises the mirror-half's retry/backoff →
+        # quarantine+rebuild escalation path (docs/compaction.md)
+        windows += _spread(rng, horizon_ms, COMPACT_FAIL,
+                           1, 0.8, 1.0, lo=0.05, hi=0.95)
+    if preset == "replica":
+        # follower-role chaos (docs/replication.md). Windows are laid
+        # DISJOINT by design: a replication reset while the leader is
+        # "unreachable" would just be the same outage twice, and the
+        # fence-timeout window must meet a HEALTHY stream so it proves the
+        # refusal path, not the outage. Early replication resets exercise
+        # resume-from-watermark; the mid-run unreachable window grows lag
+        # until bounded-staleness refusals provably fire; the late window
+        # forces fences stale while serving is otherwise healthy.
+        # wide enough that several 0.2s stream-ticker ticks land inside
+        # each window even on a smoke-sized horizon
+        windows += _spread(rng, horizon_ms, REPL_RESET,
+                           2, 0.3, 0.6, lo=0.02, hi=0.42)
+        windows += _spread(rng, horizon_ms, LEADER_UNREACH,
+                           1, 0.5, 1.0, lo=0.45, hi=0.70)
+        windows += _spread(rng, horizon_ms, FENCE_TIMEOUT,
+                           1, 0.6, 1.0, lo=0.75, hi=1.0)
+    # canonical order: by (t0, kind) so generation insertion order can't
+    # leak into the trace identity
+    windows.sort(key=lambda w: (w.t0_ms, w.kind, w.t1_ms))
+    return FaultSchedule(preset=preset, seed=seed, horizon_ms=horizon_ms,
+                         windows=tuple(windows))

@@ -11,8 +11,13 @@ Engines shipped in this package:
 
 - ``memkv``   — in-memory versioned sorted map, the test fake
                 (reference pkg/storage/memkv).
-- ``cuda``    — a host engine plus a sorted block mirror held in GPU memory;
-                range scans and counts run as CUDA kernels over it.
+- ``native``  — C++ host engine with a WAL, over ctypes (reference's Badger
+                role).
+- ``remote``  — client of the ``kbstored`` storage daemon over TCP
+                (reference's TiKV client role).
+- ``cuda``    — a host engine (any of the above) plus a sorted block mirror
+                held in GPU memory; range scans, counts and compaction
+                victims run as CUDA kernels over it.
 """
 
 from __future__ import annotations
@@ -212,6 +217,10 @@ def new_storage(name: str, **kwargs) -> KvStorage:
             from . import memkv  # noqa: F401
         elif name == "cuda":
             from . import cuda  # noqa: F401
+        elif name == "native":
+            from . import native  # noqa: F401
+        elif name == "remote":
+            from . import remote  # noqa: F401
     if name not in _FACTORIES:
         raise ValueError(f"unknown storage engine {name!r}; have {sorted(_FACTORIES)}")
     return _FACTORIES[name](**kwargs)

@@ -140,7 +140,14 @@ def _merge_sorted_blocks(blocks: list[tuple]) -> tuple:
     the revisions second among them. One stable argsort over ``key ||
     big-endian revision`` compared as void scalars (memcmp order). Shared by
     :func:`merge_sorted_arrays` and :func:`merge_sorted_stored`, so the raw
-    and the stored merge cannot diverge."""
+    and the stored merge cannot diverge.
+
+    A row present twice (the same key and revision: a revision names one
+    write) is kept once. A background rebuild from the store keeps the delta
+    rows recorded since it started, and a write that committed before the
+    build's snapshot but was recorded after that start is in both; kept
+    twice, the first copy would read as superseded by the second, and the
+    next compaction would delete the live row from the store."""
     ncols = len(blocks[0]) - 3
     keys_u8 = np.concatenate([b[0] for b in blocks])
     cols = [np.concatenate([b[1 + c] for b in blocks]) for c in range(ncols)]
@@ -150,6 +157,11 @@ def _merge_sorted_blocks(blocks: list[tuple]) -> tuple:
     sort_rows = np.ascontiguousarray(np.concatenate([keys_u8, rev_be], axis=1))
     perm = np.argsort(sort_rows.view([("v", f"V{w + 8}")]).reshape(n),
                       kind="stable")
+    ordered = sort_rows[perm]
+    fresh = np.ones(n, dtype=bool)
+    fresh[1:] = (ordered[1:] != ordered[:-1]).any(axis=1)
+    if not fresh.all():
+        perm = perm[fresh]
     arena = np.concatenate([b[-2] for b in blocks])
     bases = np.cumsum([0] + [len(b[-2]) for b in blocks[:-1]]).astype(np.int64)
     offsets = np.concatenate(

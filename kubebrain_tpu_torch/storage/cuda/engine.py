@@ -2,7 +2,9 @@
 
 Counterpart of ``kubebrain_tpu/storage/tpu/engine.py``:
 
-- **writes / point reads / CAS**: delegated to a host engine (memkv);
+- **writes / point reads / CAS**: delegated to a host engine (memkv,
+  native or remote); the mirror is built from the engine's C++ bulk export
+  where it has one (``export_mvcc``), else row by row;
 - **range scans / counts**: the device mirror (``blocks.Mirror``) and the
   CUDA visibility kernels K1/K2 (``ops/scan_kernels.py``), then a
   per-partition mask→index compaction in PyTorch ops (J1) so the host pulls
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import bisect
 import functools
+import logging
 import os
 import random
 import threading
@@ -45,10 +48,11 @@ from ...ops import keys as keyops
 from ...ops.scan import flip_sign
 from ...trace import TRACER
 from .. import BatchWrite, CASFailedError, KvStorage, Partition, register_engine
-from ..errors import UncertainResultError
+from ..errors import StorageError, UncertainResultError
 from .blocks import (
     Mirror,
     build_mirror,
+    build_mirror_from_arrays,
     compact_partitions_stored,
     compute_ttl_flags,
     merge_partitions_stored,
@@ -264,6 +268,8 @@ class TorchScanner(Scanner):
         #: merge that could not stay incremental, a merge escalation and the
         #: compaction's full-rebuild rung
         self.full_rebuild_total = 0
+        #: mirror builds from the store by path (``_build_mirror_from_store``)
+        self.mirror_builds = {"export": 0, "rows": 0}
         self.merge_count = 0
         self.merge_rows_total = 0
         # background-merge failures: counted, last error kept. Written from
@@ -588,10 +594,30 @@ class TorchScanner(Scanner):
                 self._merge_bg_last_error = e
 
     def _build_mirror_from_store(self) -> Mirror:
-        """A fresh Mirror from the authoritative store. Pure read: no
-        scanner state changes."""
+        """A fresh Mirror from the authoritative store. Pure read: the only
+        scanner state it changes is ``mirror_builds``, which counts the
+        builds by path: ``export`` when the inner engine's C++ bulk export
+        (``export_mvcc``) returned numpy arrays, ``rows`` when the rows were
+        iterated one by one (an engine without the export, or whose export
+        failed with a ``StorageError``, such as a ``kbstored`` that predates
+        it)."""
         snapshot = self._store.get_timestamp_oracle()
         lo, hi = coder.internal_range(b"", b"")
+        exporter = getattr(self._store, "untracked", lambda: self._store)()
+        if hasattr(exporter, "export_mvcc"):
+            try:
+                arrays = exporter.export_mvcc(lo, hi, snapshot, self._kw,
+                                              coder.MAGIC, TOMBSTONE)
+            except StorageError as exc:
+                logging.getLogger("kubebrain").warning(
+                    "bulk export unavailable (%s); mirror build falling back "
+                    "to per-row iteration", exc)
+            else:
+                self.mirror_builds["export"] += 1
+                return build_mirror_from_arrays(
+                    *arrays, self._device, self._kw, snapshot,
+                    n_parts=self._partitions, encode=self._encode)
+        self.mirror_builds["rows"] += 1
         rows: list[tuple[bytes, int, bytes]] = []
         for ikey, value in self._store.iter(lo, hi, snapshot_ts=snapshot):
             ukey, rev = coder.decode(ikey)
@@ -1395,9 +1421,18 @@ class CudaKvStorage(KvStorage):
 
     def _mvcc_write_tracked(self, rev_key, rev_val, expected, obj_key, obj_val,
                             last_key, last_val, ttl_seconds=0):
-        self._inner.mvcc_write(
-            rev_key, rev_val, expected, obj_key, obj_val, last_key, last_val, ttl_seconds
-        )
+        """One-call write through the inner engine, its version row recorded
+        into the delta; an uncertain outcome quarantines the mirror, as a
+        grouped or batched one does (the JAX engine's fast path does not,
+        ``kubebrain_tpu/storage/tpu/engine.py:2152``: a maybe-applied row
+        would sit in the store and never in the mirror)."""
+        try:
+            self._inner.mvcc_write(
+                rev_key, rev_val, expected, obj_key, obj_val, last_key,
+                last_val, ttl_seconds)
+        except UncertainResultError:
+            self._on_uncertain()
+            raise
         if coder.is_internal_key(obj_key):
             ukey, rev = coder.decode(obj_key)
             if rev != 0:
@@ -1445,9 +1480,14 @@ class CudaKvStorage(KvStorage):
 
     def _mvcc_delete_tracked(self, rev_key, expected_rev, new_rev, new_record,
                              tombstone, last_key, last_val):
-        result = self._inner.mvcc_delete(
-            rev_key, expected_rev, new_rev, new_record, tombstone, last_key, last_val
-        )
+        """One-call delete; an uncertain outcome quarantines the mirror."""
+        try:
+            result = self._inner.mvcc_delete(
+                rev_key, expected_rev, new_rev, new_record, tombstone,
+                last_key, last_val)
+        except UncertainResultError:
+            self._on_uncertain()
+            raise
         if result[0] == "ok" and coder.is_internal_key(rev_key):
             ukey, _ = coder.decode(rev_key)
             self._on_committed([(ukey, new_rev, tombstone)])
@@ -1515,7 +1555,11 @@ class _TrackedBatch(BatchWrite):
 def _cuda_factory(inner: str = "memkv", device=None,
                   key_width: int = keyops.KEY_WIDTH, partitions: int = 0,
                   encode_keys: bool | None = None, merge_threshold: int = 0,
+                  inner_wrap=None, inner_partitions: int = 0,
                   **inner_kw) -> CudaKvStorage:
+    """``partitions`` is the mirror's partition count; ``inner_partitions``
+    the host engine's own (``native``/``remote`` ``partitions``: the shard
+    map its host scans split by), passed on when nonzero."""
     from .. import new_storage
 
     dev = resolve_device(device)  # no card and no explicit CPU: raise here
@@ -1524,9 +1568,15 @@ def _cuda_factory(inner: str = "memkv", device=None,
         scanner_kw["encode_keys"] = encode_keys
     if merge_threshold:
         scanner_kw["merge_threshold"] = merge_threshold
-    return CudaKvStorage(new_storage(inner, **inner_kw), device=dev,
-                         key_width=key_width, partitions=partitions,
-                         **scanner_kw)
+    if inner_partitions:
+        inner_kw["partitions"] = inner_partitions
+    host = new_storage(inner, **inner_kw)
+    if inner_wrap is not None:
+        # decorate the HOST engine (chaos mode wraps FaultyStorage here, so
+        # injected uncertainty exercises the mirror's quarantine machinery)
+        host = inner_wrap(host)
+    return CudaKvStorage(host, device=dev, key_width=key_width,
+                         partitions=partitions, **scanner_kw)
 
 
 register_engine("cuda", _cuda_factory)

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s phases rehearsed on the CPU at a small size.
+"""``chip_smoke.py``'s phases rehearsed on the CPU at a small size (phase
+(g2) needs ``kbstored``: ``make -C native``).
 
 CPU tensors take the kernels' plain versions and launch nothing, so the
 rehearsal counts a launch where a wrapper calls its plain version, on the
@@ -39,6 +40,7 @@ from kubebrain_tpu_torch.ops import fanout as tfanout  # noqa: E402
 from kubebrain_tpu_torch.ops import fanout_kernels  # noqa: E402
 from kubebrain_tpu_torch.ops import keys as keyops  # noqa: E402
 from kubebrain_tpu_torch.ops import scan as tscan  # noqa: E402
+from kubebrain_tpu_torch.storage.native import NativeKv  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -351,6 +353,86 @@ def test_watch_drive_catches_a_churned_watchers_extra_event(shims,
         store.close()
 
 
+needs_kbstored = pytest.mark.skipif(
+    not chip_smoke.KBSTORED.exists(), reason="kbstored not built (make -C native)")
+
+
+def small_args(**kw):
+    """The arguments phases (g) and (h) read, at a rehearsal's size."""
+    args = dict(keys=2000, remote_keys=1500, seed=0, chaos_keys=1500,
+                chaos_watchers=300, chaos_horizon=4.0,
+                chaos_merge_threshold=64, writers=4)
+    args.update(kw)
+    return types.SimpleNamespace(**args)
+
+
+@needs_kbstored
+def test_deployed_engine_phases(shims):
+    """Phase (g): over native (then restarted on its data dir) and over a
+    kbstored, the mirror boots by the export, equals a per-row build, every
+    response equals the host scanner, the compaction equals the host
+    scanner's on a twin of the same kind, and K1-K3 launch on both."""
+    out = chip_smoke.deployed_phases(small_args(), CPU)
+    for name in ("native", "remote"):
+        res = out[name]
+        assert min(res["launches"].values()) > 0, name
+        assert res["boot_s"] > 0 and res["per_row_build_s"] > 0
+        assert {"gc", "mark", "merge"} <= set(res["compact_phase_s"][0])
+    assert out["native"]["restart_boot_s"] > 0
+
+
+def test_a_per_row_boot_fails_the_deployed_phase(shims, monkeypatch):
+    """A mirror built row by row where the engine has the export fails the
+    phase: the boot check has teeth."""
+    def no_export(self, *args):
+        raise chip_smoke.StorageError("no export")
+
+    monkeypatch.setattr(NativeKv, "export_mvcc", no_export)
+    store = chip_smoke.new_storage("cuda", inner="native", device=CPU)
+    try:
+        rows, top = chip_smoke.kube_dataset(300, 0)
+        chip_smoke.load_rows(store.untracked(), rows, top)
+        with pytest.raises(AssertionError, match="bulk export"):
+            chip_smoke.boot(store, "native")
+    finally:
+        store.close()
+
+
+def test_chaos_phase(shims):
+    """Phase (h) under the storage and the merge presets: faults injected,
+    every acknowledged write read back, no failed write present, the retry
+    FIFO drained, the mirror serving again and every response equal to the
+    host scanner, K1-K3 launching after recovery and the watch drive equal
+    to match_oracle through K4."""
+    out = chip_smoke.chaos_phase(small_args(), CPU)
+    storage, merge = out["storage"], out["merge"]
+    assert storage["quarantines"] > 0 and storage["writes"]["uncertain"] > 0
+    assert storage["injected"].get("storage_error", 0) > 0
+    assert merge["injected"] and merge["writes"]["acked"] > 0
+    for res in (storage, merge):
+        assert min(res["launches_after"].values()) > 0
+    assert out["fanout_dispatch"] > 0
+
+
+def test_chaos_read_back_catches_a_lost_acknowledged_write(shims):
+    """An acknowledged write missing from the store fails the chaos
+    read-back: the ledger check has teeth."""
+    store = chip_smoke.new_storage("cuda", inner="native", device=CPU)
+    backend = chip_smoke.Backend(store, chip_smoke.BackendConfig())
+    try:
+        ledger = chip_smoke.ChaosLedger()
+        for i in range(5):
+            k = b"/registry/pods/ns/obj-%d" % i
+            ledger.acked[k] = (b"v%d" % i, backend.create(k, b"v%d" % i))
+        chip_smoke.check_ledger(backend, ledger)
+        backend.delete(b"/registry/pods/ns/obj-3")
+        with pytest.raises(AssertionError, match="do not read back"):
+            chip_smoke.check_ledger(backend, ledger)
+    finally:
+        backend.close()
+        store.close()
+
+
 def test_routing_crossover_rows(shims):
     rows = chip_smoke.routing_crossover(CPU, 200, 0)
     assert [r["events"] for r in rows] == [1, 8, 64, 512]
@@ -394,8 +476,17 @@ def main() -> int:
     finally:
         backend.close()
         store.close()
+    small = small_args(keys=args.keys // 10, remote_keys=args.keys // 10,
+                       seed=args.seed, chaos_keys=args.keys // 20,
+                       chaos_watchers=args.watchers // 4, chaos_horizon=10.0,
+                       writers=args.writers)
+    chip_smoke.deployed_phases(small, CPU)
+    t5 = time.perf_counter()
+    chip_smoke.chaos_phase(small, CPU)
+    t6 = time.perf_counter()
     print(f"host seconds on the CPU: kernel phases {t1 - t0}, load and serve "
-          f"{t2 - t1}, compaction phase {t3 - t2}, fan-out phase {t4 - t3}")
+          f"{t2 - t1}, compaction phase {t3 - t2}, fan-out phase {t4 - t3}, "
+          f"deployed engines {t5 - t4}, chaos {t6 - t5}")
     return 0
 
 
