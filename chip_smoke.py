@@ -140,20 +140,20 @@ result line):
     (g) and (h) share no state with the other phases: a second process
     runs them, started after (d), while this one runs (c), (e), (f) and
     (i); its lines come as they are printed.
-(i) scheduled serving over native: ``cuda`` over native in (g1)'s shape,
-    loaded with (c)'s dataset and booted by export, wired as
-    ``kubebrain_tpu/cli.py:318-556`` wires a Backend (the tracer, a
-    ``DeviceFanout``, the hub, the retry queue, the scanner's gauges and
-    emissions, ``ensure_scheduler`` with the CLI's defaults and
-    ``ensure_lease`` with its cadences), with a recording sink of the
-    script's own wherever the CLI passes ``metrics``. (i1) 32 namespace
+(i) scheduled serving over native: (c)'s dataset loaded into native's
+    data dir, which is then closed and booted by the port's CLI:
+    ``kubebrain_tpu_torch.cli.build_backend`` with ``CLI_FLAGS`` (``cuda``
+    over native in (g1)'s shape, ``--tpu-fanout``, ``--single-node``, the
+    scheduler's and the leases' settings at the CLI's defaults) and a
+    recording sink of the script's own as its ``metrics``; then the
+    mirror's first publish, by export. (i1) 32 namespace
     readers (16 requests each: a Range and a Count at the load's head, a
     Range at an older revision, a page of 500 at the head) and two all-pods
-    clients, through the scheduler at ``batch`` 1 and then 8 on a fresh
-    scheduler each, every response equal to the same requests run one by
-    one on the Backend first (a shed request is submitted again and
-    counted); the batch-8 run must launch K2 with more than one query a
-    launch. (i2) beside the batch-8 run, 8 writers, ``--sched-writes`` in
+    clients, through a scheduler at ``batch`` 1 and then through the one
+    the CLI built (``--sched-batch``, 8), every response equal to the same
+    requests run one by one on the Backend first (a shed request is
+    submitted again and counted); the CLI's scheduler must launch K2 with
+    more than one query a launch. (i2) beside the batch-8 run, 8 writers, ``--sched-writes`` in
     all, create/update (against the create's revision)/delete chains with a
     read-your-writes check every 50th operation: write groups form, every
     acknowledged revision is unique and is watched once, in order, and the
@@ -163,7 +163,9 @@ result line):
     on ``/registry/events/`` namespaces (70 broad): the expired leases' keys
     leave Count (K1) and Range, every watcher equals ``match_oracle`` (K4),
     and the lease checkpoints move no quarantine and no rebuild; then more
-    leases expire with the reaper stopped, native restarts, the kept leases
+    leases expire with the reaper stopped, native restarts through the CLI
+    again (the keepalive client attached as soon as ``build_backend``
+    returns, before the reaper's first tick), the kept leases
     rehydrate with their keys, the expired ones are reaped at boot, the kept
     ones are revoked and a compaction at the head (K3) changes no answer.
     The sink's lease counters and gauges must equal the registry's, and its
@@ -194,6 +196,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import itertools
 import json
 import math
@@ -212,7 +215,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from kubebrain_tpu_torch import _build, coder
+from kubebrain_tpu_torch import _build, cli, coder
 from kubebrain_tpu_torch.backend import Backend, BackendConfig
 from kubebrain_tpu_torch.backend.common import (
     LAST_REV_KEY,
@@ -226,7 +229,6 @@ from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
 from kubebrain_tpu_torch.faults import FaultPlane, FaultyStorage, generate
 from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
 from kubebrain_tpu_torch.fanout.dispatch import max_block_events
-from kubebrain_tpu_torch.lease import ensure_lease
 from kubebrain_tpu_torch.metrics import Metrics
 from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
 from kubebrain_tpu_torch.ops import scan, scan_kernels
@@ -234,7 +236,6 @@ from kubebrain_tpu_torch.ops import keys as keyops
 from kubebrain_tpu_torch.ops.scan import flip_sign
 from kubebrain_tpu_torch.sched import (
     Lane,
-    SchedConfig,
     SchedOverloadError,
     SchedResultTimeoutError,
     ensure_scheduler,
@@ -2428,19 +2429,18 @@ class _WithoutExport:
         return getattr(self._inner, name)
 
 
-def boot(store, what: str, config: BackendConfig | None = None,
-         wire=None) -> tuple:
+def boot(store, what: str, config: BackendConfig | None = None) -> tuple:
     """A Backend over ``store`` and the mirror's first publish, which must
-    take the engine's bulk export; ``wire(backend)``, when given, runs
-    between the two. Returns (backend, boot seconds)."""
+    take the engine's bulk export. Returns (backend, boot seconds)."""
     t0 = time.perf_counter()
     backend = Backend(store, config or BackendConfig())
-    if wire is not None:
-        try:
-            wire(backend)
-        except BaseException:
-            backend.close()
-            raise
+    return backend, publish_by_export(backend, what, t0)
+
+
+def publish_by_export(backend, what: str, t0: float) -> float:
+    """The mirror's first publish, which must take the engine's bulk
+    export (the Backend is closed if it did not); returns the seconds
+    since ``t0``."""
     backend.scanner.publish()
     seconds = time.perf_counter() - t0
     builds = dict(backend.scanner.mirror_builds)
@@ -2452,7 +2452,7 @@ def boot(store, what: str, config: BackendConfig | None = None,
         backend.close()
         raise AssertionError(f"{what}: the mirror was not built by the "
                              f"engine's bulk export: {builds}")
-    return backend, seconds
+    return seconds
 
 
 def per_row_build(store, scanner, what: str) -> float:
@@ -3041,15 +3041,18 @@ def chaos_phase(args, dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase i
-#: the CLI's request-scheduler defaults, --sched-depth, --sched-queue-limit,
-#: --sched-shed-ms, --sched-batch, --sched-write-batch
-#: (kubebrain_tpu/cli.py:147-168)
-SCHED_CLI = {"depth": 4, "queue_limit": 1024, "shed_ms": 5000.0, "batch": 8,
-             "write_batch": 8}
-#: the CLI's lease cadences, --lease-reap-interval and
-#: --lease-checkpoint-interval (kubebrain_tpu/cli.py:182-187)
-LEASE_REAP_S = 1.0
-LEASE_CHECKPOINT_S = 5.0
+#: phase (i)'s flags to the port's CLI, ``--data-dir`` and ``--device``
+#: apart: ``cuda`` over native in (g1)'s shape, the block fan-out matcher
+#: (K4), one node (its identity given, so no interface is probed), and
+#: the request scheduler's and the lease subsystem's settings at the
+#: CLI's defaults, stated so that the phase runs what it assumes
+CLI_FLAGS = ("--storage", "cuda", "--inner-storage", "native",
+             "--native-partitions", str(NATIVE_PARTITIONS), "--tpu-fanout",
+             "--single-node", "--identity", "127.0.0.1:2380",
+             "--sched-depth", "4", "--sched-queue-limit", "1024",
+             "--sched-shed-ms", "5000", "--sched-batch", "8",
+             "--sched-write-batch", "8", "--lease-reap-interval", "1",
+             "--lease-checkpoint-interval", "5")
 #: client-go's pager page size (tools/pager/pager.go ``defaultPageSize``)
 PAGE_SIZE = 500
 #: the dataset's pod namespaces (:func:`kube_dataset`): one reader each
@@ -3099,46 +3102,35 @@ def take_launches() -> dict:
     return out
 
 
-def wired_boot(store, sink, dev, what: str, on_lease=None) -> tuple:
-    """A Backend over ``store`` wired as ``kubebrain_tpu/cli.py:318-556``
-    wires it, apart from the server and the endpoint, with ``sink``
-    wherever the CLI passes ``metrics``: the tracer, a ``DeviceFanout``,
-    the hub, the retry queue, the scanner's gauges and emissions, the
-    request scheduler with the CLI's defaults, and the lease registry and
-    reaper with its cadences (``on_lease(backend)`` runs as soon as they
-    exist); then the mirror's first publish, by the engine's export.
-    Returns (backend, boot seconds, seconds of ``ensure_lease``, which
-    rehydrates the lease table)."""
-    TRACER.configure(metrics=sink, slow_ms=500.0)
-    fanout_matcher = DeviceFanout(device=dev)
-    fanout_matcher.set_metrics(sink)
-    lease_s = []
+def cli_args(d: Path, dev) -> argparse.Namespace:
+    """Phase (i)'s flags, parsed by the port's CLI: ``CLI_FLAGS`` over the
+    native data dir ``d`` on ``dev``."""
+    return cli.build_parser().parse_args(
+        [*CLI_FLAGS, "--data-dir", str(d), "--device", dev.type])
 
-    def wire(backend):
-        backend.watcher_hub.set_metrics(sink)
-        backend.retry.set_metrics(sink)
-        backend.scanner.register_metrics(sink)
-        ensure_scheduler(backend, SchedConfig(**SCHED_CLI), metrics=sink)
-        t0 = time.perf_counter()
-        ensure_lease(backend, metrics=sink, reap_interval=LEASE_REAP_S,
-                     checkpoint_interval=LEASE_CHECKPOINT_S)
-        lease_s.append(time.perf_counter() - t0)
+
+def cli_boot(args, sink, what: str, on_lease=None) -> tuple:
+    """A Backend booted as the port's CLI boots one:
+    ``cli.build_backend(args, metrics=sink)`` opens the engine on the data
+    dir and wires the Backend (the tracer, the fan-out matcher, the hub,
+    the retry queue, the scanner's gauges and emissions, the request
+    scheduler, the peers, the lease registry and reaper, which rehydrates
+    the lease table and ticks from then on); ``on_lease(backend)`` runs as
+    soon as it returns, then the mirror's first publish, by the engine's
+    export. Returns (backend, store, seconds of ``build_backend``, seconds
+    of the publish)."""
+    t0 = time.perf_counter()
+    backend, store, _peers = cli.build_backend(args, metrics=sink)
+    wired_s = time.perf_counter() - t0
+    try:
         if on_lease is not None:
             on_lease(backend)
-
-    backend, seconds = boot(store, what,
-                            BackendConfig(fanout_matcher=fanout_matcher),
-                            wire=wire)
-    return backend, seconds, lease_s[0]
-
-
-def fresh_scheduler(backend, sink, batch: int):
-    """Close the Backend's request scheduler and put a new one in its
-    place: the CLI's defaults, ``batch`` distinct reads per dispatch."""
-    backend._kb_scheduler.close()
-    del backend._kb_scheduler
-    return ensure_scheduler(
-        backend, SchedConfig(**{**SCHED_CLI, "batch": batch}), metrics=sink)
+        publish_s = publish_by_export(backend, what, time.perf_counter())
+    except BaseException:
+        backend.close()
+        store.close()
+        raise
+    return backend, store, wired_s, publish_s
 
 
 def read_requests(top: int) -> dict:
@@ -3298,16 +3290,15 @@ def check_writes(backend, sched, sink, ledger: WriteLedger, events: list,
             "read_your_writes": ledger.ryw, "live_keys": len(want)}
 
 
-def read_run(backend, sink, batch: int, oracle: dict, requests: dict,
+def read_run(backend, sink, sched, batch: int, oracle: dict, requests: dict,
              writes: int = 0) -> dict:
-    """One (i1) run on a fresh scheduler with the CLI's defaults and
-    ``batch``: each client's requests from a thread of its own, all
+    """One (i1) run through ``sched``, a scheduler that batches ``batch``
+    reads: each client's requests from a thread of its own, all
     started together, every response held against ``oracle`` (a shed
     request is submitted again, its latency counted from the first
     submission); with ``writes``, (i2)'s writers beside the readers.
     Returns the run's numbers."""
     what = f"(i1) batch={batch}"
-    sched = fresh_scheduler(backend, sink, batch)
     sc = backend.scanner
     qs: list[int] = []
     orig = sc._dev_mask_batch
@@ -3426,10 +3417,14 @@ def read_run(backend, sink, batch: int, oracle: dict, requests: dict,
     return out
 
 
-def scheduled_reads(backend, sink, top: int, writes: int) -> dict:
+def scheduled_reads(backend, sink, top: int, writes: int,
+                    batch: int) -> dict:
     """(i1) and (i2): the oracle first (each distinct request once, on the
-    Backend without the scheduler), then the reads at ``batch`` 1 and at
-    the CLI's 8, the second with ``writes`` writes beside it."""
+    Backend without the scheduler), then the reads through a scheduler of
+    ``batch`` 1 in the place of the CLI's, then through the CLI's own,
+    which ``--sched-batch`` told to batch ``batch`` reads, with ``writes``
+    writes beside it."""
+    cli_sched = backend._kb_scheduler
     requests = read_requests(top)
     take_launches()
     t0 = time.perf_counter()
@@ -3443,9 +3438,18 @@ def scheduled_reads(backend, sink, top: int, writes: int) -> dict:
     log(f"(i1) oracle: {len(oracle)} distinct requests one by one on the "
         f"Backend in {oracle_s:.3f} s")
     runs = {}
-    for batch, w in ((1, 0), (SCHED_CLI["batch"], writes)):
-        runs[batch] = read_run(backend, sink, batch, oracle, requests, w)
-        launches.update(runs[batch].pop("launches"))
+    del backend._kb_scheduler
+    one = ensure_scheduler(
+        backend, dataclasses.replace(cli_sched.config, batch=1), metrics=sink)
+    try:
+        runs[1] = read_run(backend, sink, one, 1, oracle, requests)
+    finally:
+        one.close()
+        backend._kb_scheduler = cli_sched
+    runs[batch] = read_run(backend, sink, cli_sched, batch, oracle, requests,
+                           writes)
+    for run in runs.values():
+        launches.update(run.pop("launches"))
     del oracle
     return {"oracle_s": oracle_s, "runs": runs, "launches": dict(launches)}
 
@@ -3661,26 +3665,29 @@ def lease_expiry(backend, sink, keeper: Keeper, args) -> dict:
 
 
 def sched_phase(args, dev) -> dict:
-    """(i): scheduled serving over native, wired as the CLI wires it."""
+    """(i): scheduled serving over native, booted by the port's CLI."""
     d = data_dir("sched")
-    open_store = lambda: new_storage(  # noqa: E731
-        "cuda", inner="native", device=dev, data_dir=str(d), fsync=False,
-        inner_partitions=NATIVE_PARTITIONS)
+    flags = cli_args(d, dev)
     sink = RecordingMetrics()
     keeper = Keeper()
     sheds: collections.Counter = collections.Counter()
     rows, top = kube_dataset(args.keys, args.seed)
-    store = open_store()
-    backend = None
+    store = backend = None
     scanners = []
     take_launches()  # every count to 0: (i)'s own launches from here
     try:
-        load_s = load_rows(store.untracked(), rows, top)
+        native = new_storage("native", data_dir=str(d), fsync=False,
+                             partitions=NATIVE_PARTITIONS)
+        try:
+            load_s = load_rows(native, rows, top)
+        finally:
+            native.close()
         del rows
-        backend, boot_s, _ = wired_boot(store, sink, dev, "(i)")
+        backend, store, cli_s, publish_s = cli_boot(flags, sink, "(i)")
         scanners.append(backend.scanner)
         launches = collections.Counter(take_launches())
-        reads = scheduled_reads(backend, sink, top, args.sched_writes)
+        reads = scheduled_reads(backend, sink, top, args.sched_writes,
+                                flags.sched_batch)
         launches.update(reads.pop("launches"))
         keeper.attach(backend)
         expiry = lease_expiry(backend, sink, keeper, args)
@@ -3720,11 +3727,13 @@ def sched_phase(args, dev) -> dict:
         backend.close()
         backend = None
         store.close()
-        t0 = time.perf_counter()
-        store = open_store()
-        reopen_s = time.perf_counter() - t0
-        backend, restart_boot_s, rehydrate_s = wired_boot(
-            store, sink, dev, "(i3) restart", on_lease=keeper.attach)
+        store = None
+        # the keeper attaches as soon as build_backend returns: its last
+        # step, ensure_lease, rehydrates the lease table and starts the
+        # reaper, so the keepalives resume before the mirror's publish, the
+        # point where the hand wiring of earlier runs attached them
+        backend, store, restart_cli_s, restart_publish_s = cli_boot(
+            flags, sink, "(i3) restart", on_lease=keeper.attach)
         scanners.append(backend.scanner)
         reg, sched = backend._kb_lease, backend._kb_scheduler
         # the boot reap may already be under way: the reaper's first tick
@@ -3755,11 +3764,11 @@ def sched_phase(args, dev) -> dict:
             raise AssertionError(f"(i3) revoking the kept leases deleted "
                                  f"{revoked} keys, not {n_kept}")
         keeper.check()
-        log(f"(i3) restart: engine reopened in {reopen_s:.3f} s, Backend "
-            f"wired and mirror by export in {restart_boot_s:.3f} s, lease "
-            f"table rehydrated ({len(kept)} kept leases with their keys) in "
-            f"{rehydrate_s:.3f} s; the {n_restart} leases that expired were "
-            f"reaped at boot in {boot_reap_s:.3f} s, not resurrected; "
+        log(f"(i3) restart: the CLI's build_backend (engine reopen, wiring, "
+            f"lease table rehydrated with {len(kept)} kept leases and their "
+            f"keys) in {restart_cli_s:.3f} s, mirror by export in "
+            f"{restart_publish_s:.3f} s; the {n_restart} leases that expired "
+            f"were reaped at boot in {boot_reap_s:.3f} s, not resurrected; "
             f"revoking the kept leases deleted {revoked} keys")
 
         # compaction at the head (K3): every answer as before it
@@ -3803,11 +3812,10 @@ def sched_phase(args, dev) -> dict:
             raise AssertionError(f"(i) the sink disagrees with the registry "
                                  f"or the scanners: {lease_counts} against "
                                  f"{want}, {gauges}, {merged}")
-        out = {"load_s": load_s, "boot_s": boot_s, "reads": reads,
-               "leases": expiry, "restart": {
-                   "reopen_s": reopen_s, "boot_s": restart_boot_s,
-                   "rehydrate_s": rehydrate_s, "boot_reap_s": boot_reap_s,
-                   "revoked": revoked},
+        out = {"load_s": load_s, "cli_s": cli_s, "publish_s": publish_s,
+               "reads": reads, "leases": expiry, "restart": {
+                   "cli_s": restart_cli_s, "publish_s": restart_publish_s,
+                   "boot_reap_s": boot_reap_s, "revoked": revoked},
                "compact_s": compact_s, "launches": dict(launches)}
         log(f"(i): {json.dumps(out)}")
         return out
@@ -3815,7 +3823,8 @@ def sched_phase(args, dev) -> dict:
         keeper.close()
         if backend is not None:
             backend.close()
-        store.close()
+        if store is not None:
+            store.close()
         TRACER.metrics = None
         shutil.rmtree(d, ignore_errors=True)
 

@@ -22,6 +22,7 @@ host seconds (CPU numbers, not device metrics)::
 """
 
 import argparse
+import contextlib
 import sys
 import time
 import types
@@ -447,26 +448,51 @@ def small_leases(monkeypatch):
     monkeypatch.setattr(chip_smoke, "EVENT_WATCHERS", 300)
 
 
-@pytest.fixture
-def wired(shims, tmp_path):
-    """A small kube store on native behind a Backend wired as phase (i)
-    wires it: (backend, sink, top revision)."""
-    store = chip_smoke.new_storage("cuda", inner="native", device=CPU,
-                                   data_dir=str(tmp_path / "native"),
-                                   fsync=False, inner_partitions=4)
+@contextlib.contextmanager
+def cli_booted(tmp_path):
+    """A small kube store on native behind a Backend booted as phase (i)
+    boots it, by the port's CLI: (backend, sink, top revision)."""
+    d = tmp_path / "native"
+    native = chip_smoke.new_storage("native", data_dir=str(d), fsync=False,
+                                    partitions=4)
     rows, top = chip_smoke.kube_dataset(1500, 0)
-    chip_smoke.load_rows(store.untracked(), rows, top)
+    chip_smoke.load_rows(native, rows, top)
+    native.close()
     sink = chip_smoke.RecordingMetrics()
-    backend = None
+    backend = store = None
     try:
-        backend, _boot_s, _lease_s = chip_smoke.wired_boot(store, sink, CPU,
-                                                           "test")
+        backend, store, _cli_s, _publish_s = chip_smoke.cli_boot(
+            chip_smoke.cli_args(d, CPU), sink, "test")
         yield backend, sink, top
     finally:
         if backend is not None:
             backend.close()
-        store.close()
+        if store is not None:
+            store.close()
         chip_smoke.TRACER.metrics = None
+
+
+@pytest.fixture
+def wired(shims, tmp_path):
+    with cli_booted(tmp_path) as booted:
+        yield booted
+
+
+def test_cli_flags_are_the_cli_defaults(tmp_path):
+    """Phase (i)'s scheduler and lease flags state the CLI's defaults, and
+    its boot gets them: the flags cannot drift from what the CLI runs."""
+    from kubebrain_tpu_torch import cli
+
+    args = chip_smoke.cli_args(tmp_path, CPU)
+    defaults = cli.build_parser().parse_args([])
+    names = [f[2:].replace("-", "_") for f in chip_smoke.CLI_FLAGS
+             if f.startswith(("--sched-", "--lease-"))]
+    assert len(names) == 7
+    for name in names:
+        assert getattr(args, name) == getattr(defaults, name), name
+    assert (args.storage, args.inner_storage, args.device) == (
+        "cuda", "native", "cpu")
+    assert args.tpu_fanout and args.single_node and args.data_dir == str(tmp_path)
 
 
 def test_sched_phase(shims, small_leases):
@@ -501,7 +527,7 @@ def test_sched_phase_fails_when_batches_never_reach_k2(wired, monkeypatch):
     monkeypatch.setattr(RequestScheduler, "_form_batch",
                         lambda self, req: None)
     with pytest.raises(AssertionError, match="never reached K2"):
-        chip_smoke.scheduled_reads(backend, sink, top, 0)
+        chip_smoke.scheduled_reads(backend, sink, top, 0, 8)
 
 
 def test_sched_phase_catches_a_wrong_scheduled_response(wired, monkeypatch):
@@ -519,8 +545,11 @@ def test_sched_phase_catches_a_wrong_scheduled_response(wired, monkeypatch):
         return out
 
     monkeypatch.setattr(chip_smoke.Backend, "list_batch", lossy)
+    # the CLI's scheduler, which the batched run uses, resolved its batch
+    # executor when the fixture booted it
+    backend._kb_scheduler._backend_bexec = backend.list_batch
     with pytest.raises(AssertionError, match="unscheduled oracle"):
-        chip_smoke.scheduled_reads(backend, sink, top, 0)
+        chip_smoke.scheduled_reads(backend, sink, top, 0, 8)
 
 
 def test_sched_phase_catches_an_expired_key_left_visible(wired, monkeypatch,
@@ -539,6 +568,54 @@ def test_sched_phase_catches_an_expired_key_left_visible(wired, monkeypatch,
             chip_smoke.lease_expiry(backend, sink, keeper, sched_args())
     finally:
         keeper.close()
+
+
+def test_sched_phase_fails_when_the_cli_drops_batching(shims, tmp_path,
+                                                       monkeypatch):
+    """A CLI whose wiring builds its scheduler without read batches
+    (``--sched-batch`` lost on the way) leaves the run through the CLI's
+    scheduler without a K2 launch, and the phase fails."""
+    from kubebrain_tpu_torch import sched
+
+    real = sched.SchedConfig
+    monkeypatch.setattr(sched, "SchedConfig",
+                        lambda **kw: real(**{**kw, "batch": 1}))
+    with cli_booted(tmp_path) as (backend, sink, top):
+        assert backend._kb_scheduler.config.batch == 1
+        with pytest.raises(AssertionError, match="never reached K2"):
+            chip_smoke.scheduled_reads(backend, sink, top, 0, 8)
+
+
+def test_sched_phase_fails_when_a_kept_lease_is_missing_after_restart(
+        shims, small_leases, monkeypatch, tmp_path):
+    """A restart that loses one live lease from the rehydrated table (as a
+    keepalive client attached too late would let it expire) fails the
+    phase at the kept-lease check."""
+    from kubebrain_tpu_torch.lease import LeaseRegistry
+
+    def own_data_dir(name):
+        # not the checkout's: test_sched_phase's may be in use beside it
+        d = tmp_path / name
+        d.mkdir()
+        return d
+
+    monkeypatch.setattr(chip_smoke, "data_dir", own_data_dir)
+
+    orig = LeaseRegistry.rehydrate
+    dropped = []
+
+    def lossy(self):
+        n = orig(self)
+        live = [lid for lid in self.ids() if self.time_to_live(lid)[0] > 0]
+        if live and not dropped:
+            self.drop(live[0])
+            dropped.append(live[0])
+        return n
+
+    monkeypatch.setattr(LeaseRegistry, "rehydrate", lossy)
+    with pytest.raises(AssertionError, match="kept lease"):
+        chip_smoke.sched_phase(sched_args(), CPU)
+    assert dropped
 
 
 def test_side_phases_process_returns_its_result(monkeypatch):
