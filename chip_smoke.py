@@ -138,8 +138,8 @@ result line):
     plane's injected counts, quarantines, degraded seconds and rebuilds are
     printed.
     (g) and (h) share no state with the other phases: a second process
-    runs them, started after (d), while this one runs (c), (e), (f) and
-    (i); its lines come as they are printed.
+    runs them, started after (d), while this one runs (c), (e) and (f),
+    and a third (i) and (j); their lines come as they are printed.
 (i) scheduled serving over native: (c)'s dataset loaded into native's
     data dir, which is then closed and booted by the port's CLI:
     ``kubebrain_tpu_torch.cli.build_backend`` with ``CLI_FLAGS`` (``cuda``
@@ -170,6 +170,29 @@ result line):
     ones are revoked and a compaction at the head (K3) changes no answer.
     The sink's lease counters and gauges must equal the registry's, and its
     merge rows the scanners'.
+(j) a follower on the card, beside the leader the (i3) restart leaves
+    standing: ``cli.build_backend`` with ``FOLLOWER_FLAGS`` (``--role
+    follower``, ``cuda`` over memkv, ``--tpu-fanout``, ``--leader-info``
+    at :class:`LeaderStatus`, a stdlib HTTP ``/status`` of the leader
+    Backend), bootstrapped by ``ReplicaApplier.apply_bootstrap`` from one
+    leader ``list_`` of the whole keyspace at its head, then fed by
+    :class:`ReplicationFeed` (one leader watch of the whole keyspace,
+    wire-shaped events into ``apply_wire_events``, progress marks from
+    ``flushed_revision``; it stands in for the replication stream, which
+    needs ``grpcio``). Beside 8 leader writers (``--sched-writes`` ops of
+    pods through the leader's scheduler): 32 namespace readers on the
+    follower's scheduler (Range, Count and a page of 500 at explicit
+    revisions at or below the watermark, a Range at the bootstrap
+    revision, serializable head Ranges), each answer equal to the leader's
+    at the revision read; at least 100 fenced Counts, each at or above the
+    leader revision read before it; 1,000 follower-local watchers on the
+    pod namespaces (70 broad), each equal to ``match_oracle``, the
+    follower's hub stream equal to the leader's events. Then a leader
+    compaction at the head, which the follower adopts from ``/status``:
+    reads below it refused as compacted on both sides, above it equal. No
+    serializable read may be refused as stale while the watermark lag is
+    inside the bound, no off-device counter of the follower may move, and
+    the follower's own K1, K2, K3 and K4 must launch.
 
 Each phase's seconds are printed before the result lines.
 
@@ -183,7 +206,8 @@ compaction's [start, end) for K3; for K4/K5 the least work of rank space,
 three compares per pair and the rank searches) and the full-scan bound of
 every valid row (for K4/K5 the compare bound, 2C + 1 compares per pair).
 
-Output, last three lines: the kernels JSON, the ``nvidia-smi`` name and power
+Output, last three lines: the kernels JSON (with each kernel's launches on
+the follower of (j) beside the total), the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 ``--watch-ab DIR`` runs only the watch drive on an empty store, through
@@ -195,6 +219,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import dataclasses
 import itertools
@@ -216,7 +241,7 @@ import numpy as np
 import torch
 
 from kubebrain_tpu_torch import _build, cli, coder
-from kubebrain_tpu_torch.backend import Backend, BackendConfig
+from kubebrain_tpu_torch.backend import Backend, BackendConfig, CompactedError
 from kubebrain_tpu_torch.backend.common import (
     LAST_REV_KEY,
     TOMBSTONE,
@@ -233,7 +258,13 @@ from kubebrain_tpu_torch.metrics import Metrics
 from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
 from kubebrain_tpu_torch.ops import scan, scan_kernels
 from kubebrain_tpu_torch.ops import keys as keyops
+from kubebrain_tpu_torch.ops import launch_owner
 from kubebrain_tpu_torch.ops.scan import flip_sign
+from kubebrain_tpu_torch.replica import (
+    ReplicaApplier,
+    ReplicaRefusedError,
+    StaleReplicaError,
+)
 from kubebrain_tpu_torch.sched import (
     Lane,
     SchedOverloadError,
@@ -1325,17 +1356,19 @@ FANOUT_NAMESPACES = [b"ns-%03d" % i for i in range(40)]
 
 
 def fanout_population(n_watchers: int, n_broad: int, rng,
-                      kinds=FANOUT_KINDS) -> list:
+                      kinds=FANOUT_KINDS,
+                      namespaces=FANOUT_NAMESPACES) -> list:
     """Watcher specs ``[(wid, start, end, min_rev)]`` shaped like
     ``bench.py``'s fan-out population (``_fanout_population``,
     bench.py:161-186): kind/namespace prefix ranges (the informer shape),
     about 2% single-key watches whose end is ``key + b"\\0"``, ``min_rev``
     0-255, and ``n_broad`` unbounded watches over the whole registry. The
     broad cohort makes the hub's interval index dense, which routes every
-    block to the matcher. ``kinds`` are the resources watched."""
+    block to the matcher. ``kinds`` are the resources watched, in
+    ``namespaces``."""
     specs = []
     for w in range(n_watchers - n_broad):
-        ns = FANOUT_NAMESPACES[rng.randint(len(FANOUT_NAMESPACES))]
+        ns = namespaces[rng.randint(len(namespaces))]
         kind = kinds[rng.randint(len(kinds))]
         if rng.rand() < 0.02:
             key = b"/registry/%s/%s/obj-%05d" % (kind, ns, rng.randint(4096))
@@ -1964,7 +1997,8 @@ REWATCH_MEAN_S = 450.0
 def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
                 n_writers: int, seed: int,
                 rewatch_s: float = REWATCH_MEAN_S, writer=write_load,
-                settle=None, kinds=FANOUT_KINDS, sink=None) -> dict:
+                settle=None, kinds=FANOUT_KINDS, sink=None,
+                namespaces=FANOUT_NAMESPACES) -> dict:
     """(f) end to end: register watchers, drain them from consumer threads
     while writer threads write, and hold every watcher's events against
     ``match_oracle`` over the hub's full event stream.
@@ -1979,7 +2013,8 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
     n_ops, seed)`` writes one thread's share and returns the revisions of
     its acknowledged writes; ``settle()``, when given, runs after the
     writers and before the consumers stop, for writes that come later (the
-    retry FIFO's rewrites). ``kinds`` are the watched resources; ``sink``,
+    retry FIFO's rewrites). ``kinds`` are the watched resources, in
+    ``namespaces``; ``sink``,
     when given, is the :class:`RecordingMetrics` the hub and the tracer
     emit into throughout (and keep after the drive), else a new one. The
     result holds the hub's event stream (``streamed``)."""
@@ -2011,8 +2046,8 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
                 time.sleep(0.01)
 
     registered = []
-    for i, (_w, s, e, r) in enumerate(fanout_population(n_watchers, n_broad,
-                                                        rng, kinds)):
+    for i, (_w, s, e, r) in enumerate(fanout_population(
+            n_watchers, n_broad, rng, kinds, namespaces)):
         # a fifth start a few hundred revisions ahead: min_rev filters
         registered.append(watch(s, e, head + 1 + 2 * r if i % 5 == 0 else 0,
                                 i))
@@ -2023,7 +2058,8 @@ def watch_drive(backend, n_watchers: int, n_broad: int, n_writes: int,
     cohort: collections.deque = collections.deque()
 
     def rewatch():
-        _w, s, e, _r = fanout_population(1, 0, churn_rng, kinds)[0]
+        _w, s, e, _r = fanout_population(1, 0, churn_rng, kinds,
+                                         namespaces)[0]
         rev = backend.current_revision() + 1
         wid, q = watch(s, e, rev, len(churned))
         churned.append((wid, q, s, e, rev))
@@ -2644,32 +2680,37 @@ import importlib.util, json, sys, types
 spec = importlib.util.spec_from_file_location("chip_smoke_side", sys.argv[1])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
-out = smoke.side_phases(types.SimpleNamespace(**json.loads(sys.argv[2])))
+out = getattr(smoke, sys.argv[4])(
+    types.SimpleNamespace(**json.loads(sys.argv[2])))
 with open(sys.argv[3], "w") as f:
     json.dump(out, f)
 """
 
 
 class SidePhases:
-    """(g) and (h) in a process of their own on the same card, started at
-    construction: they share no state with the other phases, and the host
-    bounds them all. Its lines go to this process's output as they are
-    printed; :meth:`result` waits for it and returns the seconds and the
-    kernel launches of its phases."""
+    """Phases in a process of their own on the same card, started at
+    construction: ``phases(args)``, a function of this script, by default
+    (g) and (h) (:func:`side_phases`); :func:`sched_phases` runs (i) and
+    (j). They share no state with the other phases, and the host bounds
+    them all. Its lines go to this process's output as they are printed;
+    :meth:`result` waits for it and returns what ``phases`` returned (the
+    seconds and the kernel launches of its phases)."""
 
-    def __init__(self, args):
-        self.out = ROOT / "build" / "smoke" / "side.json"
+    def __init__(self, args, phases: str = "side_phases",
+                 what: str = "phases (g) and (h)"):
+        self.what = what
+        self.out = ROOT / "build" / "smoke" / f"{phases}.json"
         self.out.parent.mkdir(parents=True, exist_ok=True)
         self.out.unlink(missing_ok=True)
         self.proc = subprocess.Popen(
             [sys.executable, "-c", SIDE_CHILD, str(Path(__file__).resolve()),
-             json.dumps(vars(args)), str(self.out)], cwd=ROOT)
+             json.dumps(vars(args)), str(self.out), phases], cwd=ROOT)
 
     def result(self) -> dict:
         rc = self.proc.wait()
         if rc != 0:
-            raise AssertionError(f"phases (g) and (h) failed in their "
-                                 f"process (exit {rc})")
+            raise AssertionError(f"{self.what} failed in their process "
+                                 f"(exit {rc})")
         return json.loads(self.out.read_text())
 
     def close(self) -> None:
@@ -2695,6 +2736,16 @@ def side_phases(args) -> dict:
         launches.update(res["launches_after"])
     launches["fanout_dispatch"] += chaos["fanout_dispatch"]
     return {"seconds": seconds, "launches": dict(launches)}
+
+
+def sched_phases(args) -> dict:
+    """(i) and (j), in the process a :class:`SidePhases` starts."""
+    t0 = time.perf_counter()
+    served = sched_phase(args, resolve_device())
+    j = served["follower"]["seconds"]
+    return {"seconds": {"i": time.perf_counter() - t0 - j, "j": j},
+            "launches": served["launches"],
+            "follower_launches": served["follower"]["follower_launches"]}
 
 
 def deployed_phases(args, dev) -> dict:
@@ -3057,6 +3108,7 @@ CLI_FLAGS = ("--storage", "cuda", "--inner-storage", "native",
 PAGE_SIZE = 500
 #: the dataset's pod namespaces (:func:`kube_dataset`): one reader each
 POD_NAMESPACES = [b"/registry/pods/ns%02d/" % i for i in range(32)]
+POD_NAMESPACE_NAMES = [b"ns%02d" % i for i in range(32)]
 #: rounds of a reader's four request kinds: 16 requests per reader
 READ_ROUNDS = 4
 READ_KINDS = ("range", "count", "range_old", "page", "all_pods")
@@ -3665,7 +3717,8 @@ def lease_expiry(backend, sink, keeper: Keeper, args) -> dict:
 
 
 def sched_phase(args, dev) -> dict:
-    """(i): scheduled serving over native, booted by the port's CLI."""
+    """(i): scheduled serving over native, booted by the port's CLI; then
+    (j), a follower of the leader the (i3) restart leaves standing."""
     d = data_dir("sched")
     flags = cli_args(d, dev)
     sink = RecordingMetrics()
@@ -3818,6 +3871,14 @@ def sched_phase(args, dev) -> dict:
                    "boot_reap_s": boot_reap_s, "revoked": revoked},
                "compact_s": compact_s, "launches": dict(launches)}
         log(f"(i): {json.dumps(out)}")
+
+        # (j): a follower of the leader the restart left standing
+        t0 = time.perf_counter()
+        followed = follower_phase(backend, args, dev)
+        followed["seconds"] = time.perf_counter() - t0
+        launches.update(followed.pop("launches"))
+        out["follower"] = followed
+        out["launches"] = dict(launches)
         return out
     finally:
         keeper.close()
@@ -3827,6 +3888,630 @@ def sched_phase(args, dev) -> dict:
             store.close()
         TRACER.metrics = None
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase j
+#: phase (j)'s follower flags to the port's CLI, ``--leader-info`` and
+#: ``--device`` apart: a stateless follower (docs/replication.md:28-32)
+#: with its own ``cuda`` mirror over memkv and the block fan-out matcher
+#: (K4), the staleness bound at the CLI's default, its own identity and
+#: ports (no listener opens). ``--leader-address`` names no live server and
+#: is never dialled: the replication stream and the forwarding need
+#: ``grpcio``, which the card's machine lacks, so :class:`ReplicationFeed`
+#: stands in for the stream
+FOLLOWER_FLAGS = ("--role", "follower", "--storage", "cuda",
+                  "--inner-storage", "memkv", "--tpu-fanout",
+                  "--leader-address", "127.0.0.1:1",
+                  "--max-staleness-ms", "5000",
+                  "--identity", "127.0.0.1:2390", "--client-port", "2391",
+                  "--peer-port", "2390", "--info-port", "2392")
+#: the follower-local watchers on /registry/pods/ namespaces (70 broad)
+FOLLOWER_WATCHERS = 1000
+#: fenced (linearizable) Counts the phase needs at the least
+FENCED_COUNTS = 100
+#: the replication stream's progress-request cadence
+#: (``FollowerConfig.progress_interval_s``)
+PROGRESS_INTERVAL_S = 0.2
+#: the owner the follower's scanner and matcher count their kernel launches
+#: under (``ops/launch_owner.py``), apart from the leader's beside them
+FOLLOWER_OWNER = "follower"
+#: a serializable read refused as stale fails (j) when the follower's
+#: staleness at the refusal (the age of the oldest leader event it had not
+#: applied) was this much or more inside ``--max-staleness-ms``: room for
+#: the gate call's own time
+STALE_MARGIN_S = 0.5
+FOLLOWER_KINDS = ("range", "count", "range_old", "page", "serializable")
+
+
+class LeaderStatus:
+    """The leader's ``/status`` on a free local port, from a stdlib
+    ``ThreadingHTTPServer``, answered from the leader Backend with the keys
+    of ``server/__init__.py::_status``: what the follower's fence (the
+    ticketed ``HttpRevisionSyncer`` fetch) and its compaction sync read."""
+
+    def __init__(self, backend, identity: str = "127.0.0.1:2380"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from kubebrain_tpu_torch import __version__
+
+        status = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path != "/status":
+                    self.send_error(404)
+                    return
+                body = json.dumps({
+                    "revision": backend.current_revision(),
+                    "compact_revision": backend.compact_revision(),
+                    "is_leader": True, "leader": identity,
+                    "identity": identity,
+                    "watchers": backend.watcher_hub.watcher_count(),
+                    "version": __version__}).encode()
+                status.served += 1
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *_args):
+                pass
+
+        self.served = 0
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.address = f"127.0.0.1:{self.httpd.server_port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+class WireKV:
+    __slots__ = ("key", "value", "mod_revision", "create_revision", "version")
+
+    def __init__(self, key, value, mod_revision, create_revision, version):
+        self.key, self.value = key, value
+        self.mod_revision, self.create_revision = mod_revision, create_revision
+        self.version = version
+
+
+class WireEvent:
+    """One leader event as the etcd Watch stream carries it to a follower,
+    which asks for ``prev_kv``: the mapping of the port's
+    ``server/etcd/shim.py::to_event`` (type 0 PUT, 1 DELETE; a PUT's
+    create revision is its own for a create, else the previous revision),
+    with the attributes ``ReplicaApplier.apply_wire_events`` reads."""
+
+    __slots__ = ("type", "kv", "prev_kv")
+
+    def __init__(self, ev: WatchEvent):
+        if ev.verb == Verb.DELETE:
+            self.type = 1
+            self.kv = WireKV(ev.key, b"", ev.revision, 0, 0)
+        else:
+            self.type = 0
+            self.kv = WireKV(
+                ev.key, ev.value, ev.revision,
+                ev.revision if ev.verb == Verb.CREATE
+                else ev.prev_revision or ev.revision, 1)
+        self.prev_kv = None if ev.prev_value is None else WireKV(
+            ev.key, ev.prev_value, ev.prev_revision, ev.prev_revision, 1)
+
+    def HasField(self, name: str) -> bool:  # noqa: N802 - protobuf's name
+        return name == "prev_kv" and self.prev_kv is not None
+
+
+class ReplicationFeed:
+    """Stands in for ``ReplicationStream`` and ``WatchMux``, which need
+    ``grpcio``: one leader watch of the whole keyspace from ``start`` (the
+    stream's ``b""``-to-``b"\\0"`` watch with ``prev_kv``), each delivered
+    block turned into :class:`WireEvent` s for
+    ``ReplicaApplier.apply_wire_events`` at the block's header revision,
+    and progress marks every ``PROGRESS_INTERVAL_S`` from
+    ``Backend.flushed_revision`` posted through the watch's own queue, as
+    the leader answers the stream's progress requests
+    (docs/replication.md:53-61), each tick with the role's leader-head
+    sample the stream takes beside its request. An event at or below a mark or an earlier
+    event fails the feed: a mark may never run ahead of an owed event."""
+
+    def __init__(self, leader, applier, start: int, role=None):
+        self.leader, self.applier, self.role = leader, applier, role
+        self.wid, self.q = leader.watch_range(b"", b"", start)
+        self.last = start - 1       # highest revision applied or vouched
+        self.events: list[tuple] = []
+        self.commit_ts: list[float] = []  # each event's commit, monotonic
+        self.lag_ms: list[float] = []
+        self.lag_revs: list[int] = []
+        self.apply_s = 0.0
+        self.marks = 0
+        self.error: BaseException | None = None
+        self.stop = threading.Event()
+        self.threads = [threading.Thread(target=self._apply),
+                        threading.Thread(target=self._tick)]
+        for t in self.threads:
+            t.start()
+
+    def _apply(self) -> None:
+        try:
+            while not self.stop.is_set() or not self.q.empty():
+                try:
+                    item = self.q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                if item is None:
+                    raise AssertionError("(j) the leader dropped the "
+                                         "replication watch")
+                t0 = time.perf_counter()
+                if isinstance(item, ProgressMarker):
+                    self.applier.apply_wire_events([], item.revision)
+                    self.apply_s += time.perf_counter() - t0
+                    self.last = max(self.last, item.revision)
+                    self.marks += 1
+                    continue
+                if item[0].revision <= self.last:
+                    raise AssertionError(
+                        f"(j) event {item[0].revision} came after revision "
+                        f"{self.last} was vouched for: a progress mark ran "
+                        f"ahead of an owed event")
+                self.applier.apply_wire_events([WireEvent(e) for e in item],
+                                               item[-1].revision)
+                self.apply_s += time.perf_counter() - t0
+                self.lag_ms.append((time.monotonic() - item[-1].ts) * 1e3)
+                self.lag_revs.append(self.leader.current_revision()
+                                     - self.applier.backend.current_revision())
+                self.events.extend(event_row(e) for e in item)
+                self.commit_ts.extend(e.ts for e in item)
+                self.last = item[-1].revision
+        except BaseException as e:  # raised by close()
+            self.error = e
+            self.stop.set()
+
+    def _tick(self) -> None:
+        while not self.stop.wait(PROGRESS_INTERVAL_S):
+            if self.role is not None:
+                self.role.sample_leader_head()
+            for _ in range(50):
+                rev = self.leader.flushed_revision()
+                if rev >= 0:
+                    break
+                time.sleep(0.002)
+            if rev > 0:
+                self.leader.watcher_hub.post_progress(self.wid, rev)
+
+    def close(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=60)
+        self.leader.unwatch(self.wid)
+        if self.error is not None:
+            raise self.error
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("(j) the replication feed did not stop")
+
+
+def staleness_at(feed: ReplicationFeed, t: float, applied: int) -> float:
+    """Seconds, at monotonic instant ``t``, since the leader committed the
+    oldest event above revision ``applied`` (0 where the follower owed
+    none then), from the commit times of the events the feed applied."""
+    i = bisect.bisect_right(feed.events, applied, key=lambda e: e[0])
+    if i == len(feed.events) or feed.commit_ts[i] > t:
+        return 0.0
+    return t - feed.commit_ts[i]
+
+
+def event_row(e: WatchEvent) -> tuple:
+    """An event as a watcher sees it: revision, verb, key and (not for a
+    delete) value."""
+    return (e.revision, e.verb, e.key,
+            None if e.verb == Verb.DELETE else e.value)
+
+
+def range_rows(res) -> tuple:
+    """A Range answer as the wire carries it: every kv's key, value and
+    revision (``shim.to_kv`` sends the revision as both the create and the
+    mod revision, version 1), the count and ``more``."""
+    return ([(kv.key, kv.value, kv.revision) for kv in res.kvs], res.count,
+            res.more)
+
+
+def follower_requests(r0: int) -> dict:
+    """(j)'s follower reads by client: each pod namespace's reader issues,
+    ``READ_ROUNDS`` times, a Range and a Count at the follower's watermark,
+    a Range at the bootstrap revision ``r0``, a ``PAGE_SIZE`` page at the
+    watermark (explicit revisions, revision 0 standing for the watermark
+    read when it is issued) and a serializable ``PAGE_SIZE`` page at the
+    head."""
+    out = {}
+    for i, ns in enumerate(POD_NAMESPACES):
+        s, e = ns, coder.prefix_end(ns)
+        out[f"follower-{i:02d}"] = [
+            ("range", (s, e, 0, 0)), ("count", (s, e, 0)),
+            ("range_old", (s, e, r0, 0)), ("page", (s, e, 0, PAGE_SIZE)),
+            ("serializable", (s, e, 0, PAGE_SIZE))] * READ_ROUNDS
+    return out
+
+
+def pod_writer(leader, sheds: collections.Counter):
+    """(j)'s leader writers for :func:`watch_drive` (the Backend it passes
+    is the follower's, where the watchers are): each thread a scheduler
+    client of the leader's, writing create/update/delete chains of pods
+    in the dataset's pod namespaces, which the follower's readers read.
+    Returns the revisions of its acknowledged writes."""
+    sched = leader._kb_scheduler
+
+    def write(_backend, t: int, n_ops: int, _seed: int) -> list:
+        client = f"pod-writer-{t}"
+        revs: list[int] = []
+        i = 0
+        while len(revs) < n_ops:
+            key = POD_NAMESPACES[(t + 7 * i) % len(POD_NAMESPACES)] + \
+                b"pod-w%d-%05d" % (t, i)
+            rev = until_admitted(lambda: sched.create(
+                key, b"created-%d-%d" % (t, i), client=client), sheds,
+                "create")
+            revs.append(rev)
+            if len(revs) < n_ops:
+                rev = until_admitted(lambda: sched.update(
+                    key, b"updated-%d-%d" % (t, i), rev, client=client),
+                    sheds, "update")
+                revs.append(rev)
+            if i % 3 == 2 and len(revs) < n_ops:
+                revs.append(until_admitted(lambda: sched.delete(
+                    key, rev, client=client), sheds, "delete")[0])
+            i += 1
+        return revs
+
+    return write
+
+
+class FollowerTraffic:
+    """(j)'s follower clients, started together on threads of their own
+    beside the leader's writers: the namespace readers of
+    :func:`follower_requests` through the follower's scheduler, each read
+    admitted by the role's gate and held against the leader's answer at
+    the revision the follower read (revision 0 reads resolve at the
+    watermark), and one client of ``FENCED_COUNTS`` fenced (linearizable)
+    Counts of all pods, each at or above the leader revision read before
+    the call."""
+
+    def __init__(self, follower, role, leader, r0: int):
+        self.follower, self.role, self.leader = follower, role, leader
+        self.sched = follower._kb_scheduler
+        self.requests = follower_requests(r0)
+        self.lat = {k: [] for k in (*FOLLOWER_KINDS, "fenced_count")}
+        self.fence_wait: list[float] = []
+        self.refused: collections.Counter = collections.Counter()
+        #: (instant, applied revision) read just before each serializable
+        #: read the gate refused as stale, and the role's own lag then (ms)
+        self.stale: list[tuple[float, int, float]] = []
+        self.sheds: collections.Counter = collections.Counter()
+        self.wrong: list = []
+        self.errors: list = []
+        self.fenced = 0
+        self.threads = [threading.Thread(target=self._reader, args=item)
+                        for item in self.requests.items()]
+        self.threads.append(threading.Thread(target=self._fenced_counts))
+        for t in self.threads:
+            t.start()
+
+    def _gate(self, revision: int, serializable: bool) -> bool:
+        """The role's read gate; False (counted) where it refuses."""
+        t, applied = time.monotonic(), self.role.applied_revision()
+        try:
+            self.role.gate_read(revision, serializable)
+            return True
+        except ReplicaRefusedError as e:
+            self.refused[e.reason] += 1
+            if isinstance(e, StaleReplicaError):
+                self.stale.append((t, applied, self.role.lag_seconds() * 1e3))
+            return False
+
+    def _reader(self, client: str, reqs) -> None:
+        try:
+            for kind, args in reqs:
+                t = time.perf_counter()
+                if kind == "serializable":
+                    while not self._gate(0, True):
+                        time.sleep(0.05)
+                else:
+                    rev = args[2] or self.role.applied_revision()
+                    args = (*args[:2], rev, *args[3:])
+                    if not self._gate(rev, False):
+                        raise AssertionError(f"(j) {client}: an explicit "
+                                             f"read at {rev} was refused")
+                res = until_admitted(lambda: read_via(
+                    self.sched, kind, args, client), self.sheds, kind)
+                self.lat[kind].append(time.perf_counter() - t)
+                if kind == "count":
+                    got, at = res[0], res[1]
+                    want = self.leader.count(*args[:2], at)[0]
+                else:
+                    got, at = range_rows(res), res.revision
+                    want = range_rows(self.leader.list_(
+                        args[0], args[1], at, args[3]))
+                if got != want or (kind != "serializable" and at != args[2]):
+                    self.wrong.append((client, kind, args, at))
+        except BaseException as e:  # raised by close()
+            self.errors.append(e)
+
+    def _fenced_counts(self) -> None:
+        try:
+            while self.fenced < FENCED_COUNTS and not self.errors:
+                before = self.leader.current_revision()
+                t = time.perf_counter()
+                if not self._gate(0, False):
+                    continue
+                self.fence_wait.append(time.perf_counter() - t)
+                n, at = until_admitted(lambda: self.sched.count(
+                    *PODS, 0, client="fenced"), self.sheds, "fenced_count")
+                self.lat["fenced_count"].append(time.perf_counter() - t)
+                if at < before or n != self.leader.count(*PODS, at)[0]:
+                    self.wrong.append(("fenced", "count", before, at))
+                self.fenced += 1
+        except BaseException as e:  # raised by close()
+            self.errors.append(e)
+
+    def close(self) -> dict:
+        for t in self.threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("(j) a follower client never finished")
+        if self.errors:
+            raise self.errors[0]
+        if self.wrong:
+            raise AssertionError(
+                f"(j) {len(self.wrong)} follower answers differ from the "
+                f"leader's at the same revision, or a fenced read came back "
+                f"below the leader revision read before it; the first "
+                f"{self.wrong[0]}")
+        if self.fenced < FENCED_COUNTS:
+            raise AssertionError(f"(j) {self.fenced} fenced Counts, not "
+                                 f"{FENCED_COUNTS}")
+        return {
+            "requests": sum(len(v) for v in self.lat.values()),
+            "p50_ms": {k: float(np.percentile(v, 50)) * 1e3
+                       for k, v in self.lat.items()},
+            "p99_ms": {k: float(np.percentile(v, 99)) * 1e3
+                       for k, v in self.lat.items()},
+            "fenced_counts": self.fenced,
+            "fence_wait_p50_ms": statistics.median(self.fence_wait) * 1e3,
+            "refused": dict(self.refused), "sheds": dict(self.sheds)}
+
+    def check_stale_refusals(self, feed: ReplicationFeed) -> dict:
+        """Fails where a serializable read was refused as stale while the
+        follower's staleness (:func:`staleness_at`, once the feed has
+        applied every leader event) was inside the bound by
+        ``STALE_MARGIN_S`` or more; returns the staleness and the role's
+        lag at the refusals, in ms."""
+        bound_s = self.role.config.max_staleness_ms / 1e3
+        lags = [staleness_at(feed, t, applied) for t, applied, _ in self.stale]
+        inside = [s for s in lags if s < bound_s - STALE_MARGIN_S]
+        if inside:
+            raise AssertionError(
+                f"(j) {len(inside)} of {len(lags)} serializable reads refused "
+                f"as stale while the follower was {min(inside) * 1e3:.1f}-"
+                f"{max(inside) * 1e3:.1f} ms behind the leader, inside the "
+                f"{bound_s * 1e3:.0f} ms bound")
+        role_ms = [r for _, _, r in self.stale]
+        return {"refusals": len(lags),
+                "staleness_ms": [min(lags, default=0.0) * 1e3,
+                                 statistics.median(lags or [0.0]) * 1e3,
+                                 max(lags, default=0.0) * 1e3],
+                "role_lag_ms": [min(role_ms, default=0.0),
+                                max(role_ms, default=0.0)]}
+
+
+def follower_boot(leader_info: str, sink, dev) -> tuple:
+    """The follower, built as the port's CLI builds one:
+    ``cli.build_backend`` with ``FOLLOWER_FLAGS`` (the ``FollowerRole`` is
+    its peers surface). Returns (backend, store, role, seconds)."""
+    args = cli.build_parser().parse_args(
+        [*FOLLOWER_FLAGS, "--leader-info", leader_info, "--device", dev.type])
+    t0 = time.perf_counter()
+    backend, store, role = cli.build_backend(args, metrics=sink)
+    return backend, store, role, time.perf_counter() - t0
+
+
+def follower_phase(leader, args, dev) -> dict:
+    """(j): a follower on the card beside (i)'s leader, below the gRPC
+    front. Bootstrap from one leader ``list_`` of the whole keyspace at its
+    head, then the replication feed; under the leader's writers, the
+    follower's namespace readers, fenced Counts and follower-local watchers
+    (K4); a leader compaction the follower adopts from ``/status`` (K3).
+    Every follower answer equals the leader's at the same revision, every
+    watcher the oracle of the leader's events, and the follower's K1-K4
+    launch."""
+    sink = RecordingMetrics()
+    status = LeaderStatus(leader)
+    follower = fstore = role = feed = None
+    sheds: collections.Counter = collections.Counter()
+    launches = collections.Counter(take_launches())
+    try:
+        follower, fstore, role, boot_s = follower_boot(status.address, sink,
+                                                       dev)
+        fsc = follower.scanner
+        # the follower's own launches, counted by the wrappers apart from
+        # the leader's
+        launch_owner.take(FOLLOWER_OWNER)
+        fsc.launch_owner = FOLLOWER_OWNER
+        follower.watcher_hub._fanout_matcher.launch_owner = FOLLOWER_OWNER
+        owned = collections.Counter()
+        applier = ReplicaApplier(follower, role=role)
+        t0 = time.perf_counter()
+        r0 = leader.current_revision()
+        kvs = [WireKV(kv.key, kv.value, kv.revision, kv.revision, 1)
+               for kv in leader.list_(b"", b"", r0).kvs]
+        list_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        applier.apply_bootstrap(kvs, r0)
+        apply_s = time.perf_counter() - t1
+        n_boot = len(kvs)
+        del kvs
+        feed = ReplicationFeed(leader, applier, r0 + 1, role)
+        t1 = time.perf_counter()
+        fsc.publish()
+        publish_s = time.perf_counter() - t1
+        boot = {"keys": n_boot, "revision": r0, "list_s": list_s,
+                "apply_s": apply_s, "publish_s": publish_s,
+                "seconds": time.perf_counter() - t0,
+                "rows": fsc._mirror.rows, "merges": fsc.merge_count,
+                "builds": dict(fsc.mirror_builds), "cli_s": boot_s}
+        boot["keys_per_s"] = n_boot / boot["seconds"]
+        if follower.compact_revision() != r0 or \
+                follower.current_revision() < r0:
+            raise AssertionError(f"(j) bootstrap at {r0}: compact floor "
+                                 f"{follower.compact_revision()}, watermark "
+                                 f"{follower.current_revision()}")
+        log(f"(j) bootstrap: the CLI's build_backend (--role follower) in "
+            f"{boot_s:.3f} s; {n_boot} keys at revision {r0}: leader list_ "
+            f"{list_s:.3f} s, ReplicaApplier.apply_bootstrap {apply_s:.3f} s, "
+            f"the follower mirror's first publish {publish_s:.3f} s "
+            f"({boot['rows']} rows, builds {boot['builds']}); "
+            f"{boot['seconds']:.3f} s = {boot['keys_per_s']:.0f} keys/s, "
+            f"{boot['merges']} merges")
+        rebuilds = fsc.full_rebuild_total
+        launches.update(take_launches())
+
+        # the traffic: leader writers (in the watch drive), follower readers
+        # and fenced Counts beside them
+        head0 = follower.current_revision()
+        traffic = FollowerTraffic(follower, role, leader, r0)
+        try:
+            drive = watch_drive(follower, FOLLOWER_WATCHERS, 70,
+                                args.sched_writes, WRITER_THREADS, args.seed,
+                                writer=pod_writer(leader, sheds),
+                                kinds=(b"pods",), sink=sink,
+                                namespaces=POD_NAMESPACE_NAMES)
+        finally:
+            reads = traffic.close()
+        streamed = [event_row(e) for e in drive.pop("streamed")]
+        leader_events = [e for e in feed.events if e[0] > head0]
+        if streamed != leader_events:
+            raise AssertionError(f"(j) the follower's hub streamed "
+                                 f"{len(streamed)} events, not the leader's "
+                                 f"{len(leader_events)} in order")
+        k_traffic = take_launches()
+        launches.update(k_traffic)
+        log(f"(j) traffic: {drive['writes']} leader writes from "
+            f"{WRITER_THREADS} threads; {reads['requests']} follower reads "
+            f"and {reads['fenced_counts']} fenced Counts, every answer equal "
+            f"to the leader's at the same revision; p50 ms {reads['p50_ms']}; "
+            f"p99 ms {reads['p99_ms']}; fence wait p50 "
+            f"{reads['fence_wait_p50_ms']:.3f} ms; refused by reason "
+            f"{reads['refused']}; follower watch drive of {drive['watchers']} "
+            f"watchers: {drive['events']} events, {drive['delivered']} "
+            f"deliveries, every watcher equal to match_oracle over the "
+            f"follower's stream, which equals the leader's")
+
+        # the compaction the follower adopts, as the stream's compact sync
+        # does: the leader's /status, then the local Backend.compact
+        head = leader.current_revision()
+        t0 = time.perf_counter()
+        leader.compact(head)
+        leader_compact_s = time.perf_counter() - t0
+        launches.update(take_launches())
+        role.fence()
+        payload = role._syncer.fetch_status()
+        compacted = int(payload["compact_revision"])
+        owned.update(launch_owner.take(FOLLOWER_OWNER))
+        t0 = time.perf_counter()
+        follower.compact(compacted)
+        compact_s = time.perf_counter() - t0
+        k_compact = take_launches()
+        launches.update(k_compact)
+        k3 = launch_owner.take(FOLLOWER_OWNER).get("victim_mask", 0)
+        owned["victim_mask"] += k3
+        if compacted != head or follower.compact_revision() != head or \
+                k3 != k_compact["victim_mask"]:
+            raise AssertionError(f"(j) the follower adopted compaction "
+                                 f"{follower.compact_revision()}, the leader "
+                                 f"{head}, /status {compacted}")
+        fsched = follower._kb_scheduler
+        for s, e in (NS, PODS):
+            for side in (leader, follower):
+                try:
+                    side.count(s, e, head - 1)
+                except CompactedError:
+                    continue
+                raise AssertionError(f"(j) a read below the compaction "
+                                     f"({head - 1}) served on one side")
+            for rev in (head, follower.current_revision()):
+                same = fsched.count(s, e, rev) == leader.count(s, e, rev)
+                if (s, e) == NS:
+                    same = same and range_rows(fsched.list_(s, e, rev)) == \
+                        range_rows(leader.list_(s, e, rev))
+                if not same:
+                    raise AssertionError(f"(j) after the compaction the "
+                                         f"follower's answer for {s!r} at "
+                                         f"{rev} differs from the leader's")
+        launches.update(take_launches())
+        stayed_on_device(fsc, rebuilds, "(j) follower")
+        owned.update(launch_owner.take(FOLLOWER_OWNER))
+        follower_launches = {name: owned[name] for name in SOURCES}
+        missing = [k for k in ("scan_mask", "scan_mask_q", "victim_mask",
+                               "fanout_dispatch") if follower_launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"(j) the follower never launched {missing}: "
+                                 f"{follower_launches}")
+        feed.close()
+        reads["stale"] = traffic.check_stale_refusals(feed)
+        apply_events = len(feed.events)
+        lag_max = max(feed.lag_ms)
+        out = {
+            "bootstrap": boot, "reads": reads,
+            "watch": {k: drive[k] for k in ("watchers", "events", "delivered",
+                                            "blocks", "wall_s", "lag_p50_ms")},
+            "apply": {"events": apply_events, "marks": feed.marks,
+                      "seconds": feed.apply_s,
+                      "events_per_s": apply_events / max(feed.apply_s, 1e-9),
+                      "lag_ms_p50": statistics.median(feed.lag_ms),
+                      "lag_ms_max": lag_max,
+                      "lag_revs_p50": statistics.median(feed.lag_revs),
+                      "lag_revs_max": max(feed.lag_revs)},
+            "leader_compact_s": leader_compact_s, "compact_s": compact_s,
+            "compact_revision": head, "status_served": status.served,
+            "writer_sheds": dict(sheds),
+            "follower_launches": follower_launches}
+        log(f"(j) apply: {apply_events} events and {feed.marks} progress "
+            f"marks in {feed.apply_s:.3f} s inside apply_wire_events = "
+            f"{out['apply']['events_per_s']:.0f} events/s; watermark lag p50 "
+            f"{out['apply']['lag_revs_p50']} / max "
+            f"{out['apply']['lag_revs_max']} revisions, p50 "
+            f"{out['apply']['lag_ms_p50']:.3f} / max {lag_max:.3f} ms")
+        log(f"(j) compaction: leader {head} in {leader_compact_s:.3f} s, "
+            f"the follower's from /status in {compact_s:.3f} s; reads below "
+            f"it refused as compacted on both sides, above it equal")
+        log(f"(j) {reads['stale']['refusals']} serializable reads refused as "
+            f"stale, the follower then min / p50 / max "
+            f"{reads['stale']['staleness_ms']} ms behind the leader (the "
+            f"age of the oldest event it had not applied), the role's lag "
+            f"{reads['stale']['role_lag_ms']} ms; none inside the "
+            f"{role.config.max_staleness_ms:.0f} ms bound by "
+            f"{STALE_MARGIN_S} s or more")
+        log(f"(j) follower launches per kernel, counted by the wrappers under "
+            f"the follower's owner: {follower_launches}")
+        log(f"(j): {json.dumps(out)}")
+        out["launches"] = dict(launches)
+        return out
+    finally:
+        if feed is not None and not feed.stop.is_set():
+            feed.stop.set()
+            for t in feed.threads:
+                t.join(timeout=60)
+            leader.unwatch(feed.wid)
+        if role is not None:
+            role.close()
+        if follower is not None:
+            follower.close()
+        if fstore is not None:
+            fstore.close()
+        status.close()
 
 
 AB_CHILD = """
@@ -3937,6 +4622,7 @@ def main() -> int:
 
     t_side = time.perf_counter()
     side = SidePhases(args)
+    sched = SidePhases(args, "sched_phases", "phases (i) and (j)")
     try:
         t0 = time.perf_counter()
         store, top = load_store(args.keys, args.seed, dev)
@@ -3954,19 +4640,19 @@ def main() -> int:
         finally:
             backend.close()
             store.close()
-        t0 = time.perf_counter()
-        served = sched_phase(args, dev)
-        seconds["i"] = time.perf_counter() - t0
         side_out = side.result()
+        served = sched.result()
     finally:
         side.close()
+        sched.close()
     seconds.update(side_out["seconds"])
-    seconds["c-i, both processes"] = time.perf_counter() - t_side
+    seconds.update(served["seconds"])
+    seconds["c-j, three processes"] = time.perf_counter() - t_side
     log(f"phase seconds: {json.dumps(seconds)}")
     launches["victim_mask"] = compacted["launches"]
     main_cases["victim_mask"] = compacted["case"]
     launches.update(fanned["watch"]["launches"])
-    # the launches of the deployed engines', the chaos and (i)'s paths
+    # the launches of the deployed engines', the chaos, (i)'s and (j)'s paths
     for name, n in itertools.chain(side_out["launches"].items(),
                                    served["launches"].items()):
         launches[name] = launches.get(name, 0) + n
@@ -3978,6 +4664,7 @@ def main() -> int:
         errs[name] = [v["max_abs_err"] for (n, _c), v in
                       fanned["cases"].items() if n == name]
 
+    follower_launches = served["follower_launches"]
     kernels = []
     for name in SOURCES:
         m = main_cases[name]
@@ -3989,6 +4676,7 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "bound_full_ms": m["bound_full_ms"],
             "library_ms": None,
+            "follower_launches": follower_launches[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -682,7 +682,7 @@ class Backend:
             self._ring_cond.notify_all()
 
     def ingest_replicated(self, events: list[WatchEvent], watermark: int) -> None:
-        """Follower role (kubebrain_tpu/replica): adopt an already-sequenced
+        """Follower role (``replica/``): adopt an already-sequenced
         replicated event block from the leader's stream — watch cache + hub
         fan-out + the committed revision floor, strictly DOWNSTREAM of the
         leader's sequencer. The local ring/TSO-deal path is never involved:
@@ -889,7 +889,7 @@ class Backend:
 
     def set_compact_floor(self, revision: int) -> int:
         """Persist the compact watermark WITHOUT running GC borders — the
-        follower bootstrap/resync case (kubebrain_tpu/replica): the local
+        follower bootstrap/resync case (``replica/``): the local
         store was built from post-GC leader state, so there is nothing to
         collect, only history below ``revision`` to fence off (reads under
         it refuse as compacted — the honest etcd answer for a follower

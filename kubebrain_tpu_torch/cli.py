@@ -13,8 +13,10 @@ scheduler, peers, leases, metrics sinks) and imports neither ``grpc`` nor
 adds the gRPC server and the HTTP listeners on top of it.
 
 Flags of the JAX CLI that need modules not ported yet are kept and refused
-when set (:func:`validate_args`), never served without; the follower's own
-flags (leader address, staleness bounds, fence timeout) come with replica/.
+when set (:func:`validate_args`), never served without. ``--role follower``
+builds the follower role (``replica/``) as the peers surface in
+:func:`build_backend`; its replication stream and forwarding need ``grpc``
+and start with the endpoint.
 
 Run: ``python -m kubebrain_tpu_torch.cli --single-node`` serves from the
 ``cuda`` engine over memkv on the card (``--device cpu`` runs it, or a
@@ -98,8 +100,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enable-etcd-proxy", action="store_true",
                    help="followers forward writes to the leader")
     p.add_argument("--role", choices=("leader", "follower"), default="leader",
-                   help="serving role; 'follower' (replicated read serving) "
-                        "is refused until replica/ is ported (ROADMAP item 9)")
+                   help="serving role (docs/replication.md): 'follower' "
+                        "keeps its own mirror on --device fed by a resumable "
+                        "replication stream from --leader-address, serves "
+                        "explicit-revision + bounded-staleness reads and "
+                        "Watch locally, fences linearizable reads on the "
+                        "leader's revision, and forwards writes/leases/"
+                        "compaction")
+    p.add_argument("--leader-address", default="",
+                   help="leader client (gRPC) host:port (--role follower): "
+                        "replication stream source + write/lease forward "
+                        "target")
+    p.add_argument("--leader-info", default="",
+                   help="leader info/peer (HTTP) host:port (--role "
+                        "follower): /status for the linearizable-read "
+                        "revision fence + compact-watermark sync")
+    p.add_argument("--max-staleness-rev", type=int, default=0,
+                   help="follower bounded-staleness bound in revisions: "
+                        "serializable reads REFUSE (etcdserver: replica "
+                        "too stale) once the replication lag exceeds it; "
+                        "0 = unbounded")
+    p.add_argument("--max-staleness-ms", type=float, default=5000.0,
+                   help="follower bounded-staleness bound in wall ms since "
+                        "the watermark last covered the leader head; "
+                        "refusal past it, 0 = unbounded")
+    p.add_argument("--fence-timeout-ms", type=float, default=3000.0,
+                   help="follower linearizable-read fence: how long the "
+                        "applied watermark may chase the leader revision "
+                        "before the read refuses (never answers stale)")
     p.add_argument("--enable-storage-metrics", action="store_true")
     p.add_argument("--tpu-fanout", action="store_true",
                    help="watch fan-out on the device (block-batched "
@@ -196,6 +224,27 @@ def _parsed(args) -> argparse.Namespace:
     return build_parser().parse_args(list(args))
 
 
+def _validate_follower(args) -> None:
+    """The follower flags' refusals (``kubebrain_tpu/cli.py:282-304``)."""
+    if not args.leader_address:
+        raise SystemExit("--role follower requires --leader-address")
+    if not args.leader_info:
+        raise SystemExit("--role follower requires --leader-info "
+                         "(the leader's info/peer HTTP host:port)")
+    if args.aio_port or args.front_port:
+        # those fronts build their services WITHOUT the replica gate:
+        # they would serve ungated (silently stale) "linearizable"
+        # reads and refuse lease RPCs instead of forwarding
+        raise SystemExit("--role follower serves the sync gRPC front "
+                         "only (--aio-port/--front-port have no "
+                         "replica read gate yet)")
+    if args.fence_timeout_ms <= 0:
+        raise SystemExit("--fence-timeout-ms must be > 0")
+    if args.max_staleness_rev < 0 or args.max_staleness_ms < 0:
+        raise SystemExit("--max-staleness-rev/--max-staleness-ms "
+                         "must be >= 0 (0 = unbounded)")
+
+
 def validate_args(args) -> None:
     """Flag validation (reference KubeBrainOption.Validate, option.go:207)."""
     ports = [args.client_port, args.peer_port, args.info_port]
@@ -208,13 +257,15 @@ def validate_args(args) -> None:
     if args.mesh_part or args.mesh_wat:
         raise SystemExit("--mesh-part/--mesh-wat need multi-GPU support, "
                          "which is not ported yet (ROADMAP item 10)")
+    if args.role == "follower":
+        _validate_follower(args)
+    elif args.leader_address or args.leader_info:
+        raise SystemExit("--leader-address/--leader-info require "
+                         "--role follower")
     if args.aio_port or args.front_port:
         raise SystemExit("--aio-port/--front-port need endpoint/aio.py and "
                          "endpoint/front.py, which are not ported yet "
                          "(ROADMAP item 9)")
-    if args.role == "follower":
-        raise SystemExit("--role follower needs replica/, which is not "
-                         "ported yet (ROADMAP item 9)")
     if bool(args.cert_file) != bool(args.key_file):
         raise SystemExit("--cert-file and --key-file must be set together")
     if args.secure_only and not args.cert_file:
@@ -265,11 +316,12 @@ def build_backend(args, metrics=None):
     [metrics decorator] → fan-out matcher → backend → scheduler → peers →
     leases, with ``metrics`` (``new_metrics(args.cluster_name)`` when None)
     wherever a sink goes. ``args`` is the parsed flags or a list of them.
-    Returns (backend, store, peers).
+    Returns (backend, store, peers); under ``--role follower`` the peers
+    are the ``FollowerRole``, whose replication stream is not started.
 
     Imports no ``grpc``, ``protobuf``, ``prometheus_client`` or
     ``cryptography``, apart from the Prometheus sink when ``metrics`` is
-    None."""
+    None and ``grpc`` for a follower's ``--ca-file``."""
     args = _parsed(args)
     validate_args(args)
     from .backend import Backend, BackendConfig
@@ -410,7 +462,34 @@ def build_backend(args, metrics=None):
     ), metrics=metrics)
 
     identity = args.identity or f"{get_host()}:{args.peer_port}"
-    if args.single_node:
+    if args.role == "follower":
+        # follower role (docs/replication.md): the role object IS the
+        # peers surface (is_leader False, no-op revision sync) so every
+        # existing service works unchanged, plus the per-RPC replica
+        # routing the etcd terminals consult
+        from .replica import FollowerConfig, FollowerRole
+
+        leader_creds = None
+        if args.ca_file:
+            # a TLS-serving leader: verify it against the configured CA
+            # on the forwarding + replication channels
+            import grpc
+
+            with open(args.ca_file, "rb") as f:
+                leader_creds = grpc.ssl_channel_credentials(
+                    root_certificates=f.read())
+        peers = FollowerRole(
+            backend,
+            FollowerConfig(
+                leader_address=args.leader_address,
+                leader_info=args.leader_info,
+                max_staleness_rev=args.max_staleness_rev,
+                max_staleness_ms=args.max_staleness_ms,
+                fence_timeout_s=args.fence_timeout_ms / 1000.0,
+                credentials=leader_creds,
+            ),
+            metrics=metrics, fault_plane=fault_plane, identity=identity)
+    elif args.single_node:
         peers = SingleNodePeerService(backend, identity)
     else:
         peers = PeerService(
@@ -447,10 +526,12 @@ def build_endpoint(args):
     metrics = new_metrics(args.cluster_name)
     backend, store, peers = build_backend(args, metrics=metrics)
     identity = peers.identity
+    replica_role = peers if args.role == "follower" else None
     server = Server(
         backend, peers, metrics, identity,
         client_urls=[f"http://{identity.rsplit(':', 1)[0]}:{args.client_port}"],
         compact_interval=args.compact_interval,
+        replica=replica_role,
     )
     extra_http = {}
     fault_plane = getattr(backend, "_kb_faults", None)
@@ -472,6 +553,21 @@ def build_endpoint(args):
         grpc_workers=args.grpc_workers,
         extra_http=extra_http,
     ))
+    if replica_role is not None:
+        # start the replication stream once the listeners are up; stop it
+        # (and the forwarding channel) before the backend goes away
+        _rp_run, _rp_close = endpoint.run, endpoint.close
+
+        def run_with_replica():
+            _rp_run()
+            replica_role.start()
+
+        def close_with_replica(grace: float = 1.0):
+            replica_role.close()
+            _rp_close(grace)
+
+        endpoint.run = run_with_replica
+        endpoint.close = close_with_replica
     return endpoint, backend, store
 
 

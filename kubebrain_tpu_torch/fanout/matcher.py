@@ -30,6 +30,7 @@ import torch
 from ..device import _host_pull
 from ..ops import fanout as fanout_ops
 from ..ops import keys as keyops
+from ..ops import launch_owner
 from ..ops.fanout import pow2_at_least
 from ..ops.scan import flip_sign
 from ..trace import TRACER
@@ -74,6 +75,10 @@ class DeviceFanout:
 
     #: hub protocol marker: hand this matcher whole drain blocks
     prefers_blocks = True
+
+    #: the name this matcher's kernel launches are also counted under
+    #: (``ops/launch_owner.py``); None counts them under nobody
+    launch_owner: str | None = None
 
     def __init__(self, width: int | None = None, metrics=None, device=None):
         # width None = auto: the table buckets the packed width to the
@@ -144,7 +149,8 @@ class DeviceFanout:
         ws, we, wu, wr, index, wids, _ver = self._table.ranked_view()
         while True:
             self.stats["dispatches"] += 1
-            with TRACER.stage("fanout_dispatch"):
+            with TRACER.stage("fanout_dispatch"), \
+                    launch_owner.owned_by(self.launch_owner):
                 _counts, idx, total = fanout_dispatch(
                     ek, er, len(piece), ws, we, wu, wr, size=self._idx_size,
                     index=index, with_total=True)

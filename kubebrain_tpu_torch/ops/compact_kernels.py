@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from . import compact
+from . import compact, launch_owner
 from .scan_kernels import MAX_CHUNKS
 
 _P = ctypes.c_void_p
@@ -107,6 +107,7 @@ def victim_mask_batch(keys_t, revs, tomb, ttl, n_valid, start, end,
     if err != 0:
         raise RuntimeError(f"victim kernel launch failed: CUDA error {err}")
     victim_mask_batch.launches += 1
+    launch_owner.count("victim_mask")
     return mask, counts
 
 

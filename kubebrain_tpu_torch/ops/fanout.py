@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import keys as keyops
-from . import scan
+from . import launch_owner, scan
 from ..device import _host_pull, resolve_device
 from ..trace import TRACER
 
@@ -436,6 +436,10 @@ class FanoutMatcher:
     ``device=None`` means ``cuda`` and raises without a card.
     """
 
+    #: the name this matcher's kernel launches are also counted under
+    #: (``ops/launch_owner.py``); None counts them under nobody
+    launch_owner: str | None = None
+
     def __init__(self, width: int = keyops.KEY_WIDTH, mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("a sharded watcher table needs "
@@ -510,7 +514,8 @@ class FanoutMatcher:
         dev = self.device
         ek = torch.from_numpy(scan.flip_sign(ek)).to(dev)
         er = torch.from_numpy(revisions(revs)).to(dev)
-        with TRACER.stage("fanout_dispatch"):
+        with TRACER.stage("fanout_dispatch"), \
+                launch_owner.owned_by(self.launch_owner):
             mask = fanout_kernels.fanout_mask_range(ek, er, e, ws, we, wu, wr,
                                                     index=self._index)
         with TRACER.stage("fanout_copy"):

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import fanout
+from . import fanout, launch_owner
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -142,6 +142,7 @@ def fanout_dispatch(ev_keys, ev_revs, n_ev: int, w_start, w_end, w_unbounded,
     if err != 0:
         raise RuntimeError(f"fan-out kernel launch failed: CUDA error {err}")
     fanout_dispatch.launches += 1
+    launch_owner.count("fanout_dispatch")
     return (counts, idx, total) if with_total else (counts, idx)
 
 
@@ -173,6 +174,7 @@ def fanout_mask_range(ev_keys, ev_revs, n_ev: int, w_start, w_end,
         raise RuntimeError(f"fan-out mask kernel launch failed: CUDA error "
                            f"{err}")
     fanout_mask_range.launches += 1
+    launch_owner.count("fanout_mask_range")
     return mask
 
 

@@ -7,7 +7,8 @@ Each wrapper decides by the device of the tensors it is given: on the CPU
 it computes the plain PyTorch version (``ops/scan.py``); on a CUDA device it
 launches its kernel on the current stream, or raises. Each keeps a launch
 counter, a plain integer (``visibility_mask_batch.launches``), raised by one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else; the launch is counted there
+under its owner too (``ops/launch_owner.py``).
 
 Layout: keys_t int32[P, C, N] (chunk-major, sign-flipped, C <= 32),
 revs int64[P, N], tomb int8[P, N], n_valid int32[P]; bounds are sign-flipped
@@ -28,7 +29,7 @@ import ctypes
 
 import torch
 
-from . import scan
+from . import launch_owner, scan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,6 +109,7 @@ def visibility_mask_batch(keys_t, revs, tomb, n_valid, start, end, unbounded,
                            starts, ends, unbounded, read_rev, with_q=False)
     if mask.numel():  # an empty mirror launches nothing
         visibility_mask_batch.launches += 1
+        launch_owner.count("scan_mask")
     return mask[0], counts[0]
 
 
@@ -133,6 +135,7 @@ def visibility_mask_batch_q(keys_t, revs, tomb, n_valid, starts, ends,
                            starts, ends, unbounded, read_revs, with_q=True)
     if mask.numel():  # an empty mirror launches nothing
         visibility_mask_batch_q.launches += 1
+        launch_owner.count("scan_mask_q")
     return mask, counts
 
 

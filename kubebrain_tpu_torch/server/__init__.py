@@ -41,7 +41,8 @@ class Server:
         self.peers = peers
         self.metrics = metrics or NoopMetrics()
         self.identity = identity
-        #: follower role (``kubebrain_tpu/replica``; not ported yet, so None)
+        #: follower role (``replica.FollowerRole``, which the CLI builds for
+        #: ``--role follower``; None on a leader)
         self.replica = replica
         self.brain = BrainServer(backend, peers, compact_interval=compact_interval)
         self.grpc_handlers = (

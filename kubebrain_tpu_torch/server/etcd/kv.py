@@ -67,10 +67,10 @@ class KVService:
                  replica=None):
         self.backend = backend
         self.peers = peers  # PeerService: leader check / proxy / revision sync
-        #: follower role (``kubebrain_tpu/replica``, not ported yet: the CLI
-        #: refuses ``--role follower``, so None): per-RPC routing — reads
-        #: gate on the replication watermark and then ride the SAME
-        #: scheduler lanes below; writes/compaction forward to the leader
+        #: follower role (``replica.FollowerRole`` under ``--role
+        #: follower``, None on a leader): per-RPC routing — reads gate on
+        #: the replication watermark and then ride the SAME scheduler
+        #: lanes below; writes/compaction forward to the leader
         self.replica = replica
         # the device-aware request scheduler: every range read goes through
         # its admission lanes (kblint KB106). All services over one backend

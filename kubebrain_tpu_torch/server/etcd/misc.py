@@ -49,9 +49,9 @@ class LeaseService:
     def __init__(self, backend, peers=None, replica=None):
         self.backend = backend
         self.peers = peers
-        #: follower role (``kubebrain_tpu/replica``, not ported yet): lease
-        #: state lives on the leader, so every lease RPC forwards there with
-        #: status passthrough
+        #: follower role (``replica.FollowerRole`` under ``--role
+        #: follower``, None on a leader): lease state lives on the leader,
+        #: so every lease RPC forwards there with status passthrough
         #: — unlike the election-follower refusal below, a replica-role
         #: follower is a full serving endpoint for lease clients
         self.replica = replica

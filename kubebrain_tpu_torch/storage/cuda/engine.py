@@ -43,7 +43,7 @@ from ...backend.common import TOMBSTONE, KeyValue
 from ...backend import scanner as scanner_mod
 from ...backend.scanner import CompactHistory, CompactStats, Scanner
 from ...device import _host_pull, _pow2_bucket, resolve_device
-from ...ops import compact_kernels, scan_kernels
+from ...ops import compact_kernels, launch_owner, scan_kernels
 from ...ops import keys as keyops
 from ...ops.scan import flip_sign
 from ...trace import TRACER
@@ -230,6 +230,10 @@ class TorchScanner(Scanner):
     """Scanner contract over the device mirror; host fallback for small
     limit queries (one engine iter beats a kernel launch for a 500-row page).
     """
+
+    #: the name this scanner's kernel launches are also counted under
+    #: (``ops/launch_owner.py``); None counts them under nobody
+    launch_owner: str | None = None
 
     def __init__(
         self,
@@ -728,9 +732,10 @@ class TorchScanner(Scanner):
         launched, so count/range/stream cannot diverge."""
         starts, ends, unb, rrev = query_tensors(
             mirror.encoding, self._kw, [(start, end, read_rev)], self._device)
-        return scan_kernels.visibility_mask_batch(
-            mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-            mirror.n_valid_dev, starts[0], ends[0], unb, rrev)
+        with launch_owner.owned_by(self.launch_owner):
+            return scan_kernels.visibility_mask_batch(
+                mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
+                mirror.n_valid_dev, starts[0], ends[0], unb, rrev)
 
     def _dev_mask_batch(self, mirror: Mirror, specs):
         """Batched visibility for Q distinct ``(start, end, read_rev)``
@@ -743,9 +748,10 @@ class TorchScanner(Scanner):
         padded = list(specs) + [specs[0]] * (qpad - len(specs))
         starts, ends, unb, rrevs = query_tensors(
             mirror.encoding, self._kw, padded, self._device)
-        return scan_kernels.visibility_mask_batch_q(
-            mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-            mirror.n_valid_dev, starts, ends, unb, rrevs)
+        with launch_owner.owned_by(self.launch_owner):
+            return scan_kernels.visibility_mask_batch_q(
+                mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
+                mirror.n_valid_dev, starts, ends, unb, rrevs)
 
     def _dev_visible_indices(self, mask, counts, n_rows: int):
         """(total, flat p·N + row indices int64) from a device mask [P, N]:
@@ -1080,8 +1086,9 @@ class TorchScanner(Scanner):
         """The victim mask [P, N] and the victims of each partition
         int32[P], both from one K3 launch, the one place compaction
         launches it."""
-        return compact_kernels.victim_mask_batch(*self._victim_args(
-            mirror, start, end, compact_rev, ttl_cutoff))
+        args = self._victim_args(mirror, start, end, compact_rev, ttl_cutoff)
+        with launch_owner.owned_by(self.launch_owner):
+            return compact_kernels.victim_mask_batch(*args)
 
     def _pull_victim_indices(self, mask: torch.Tensor, counts: torch.Tensor,
                              mirror: Mirror) -> dict[int, np.ndarray]:
@@ -1140,7 +1147,9 @@ class TorchScanner(Scanner):
         untracked inner engine, so they neither feed the delta nor poison
         the mirror. The whole pass holds ``_merge_lock``; readers keep
         serving mirror + overlay. A failed mirror half retries with backoff,
-        then escalates to quarantine and a rebuild from the GC'd store.
+        then escalates to quarantine and a rebuild from the GC'd store. A
+        failed gc quarantines the mirror the same way before it re-raises:
+        the store may already lack rows the mirror holds.
         ``pre_merge`` times the merge of the pending delta before marking."""
         t0 = time.monotonic()
         self._ensure_published(full=True)
@@ -1152,6 +1161,7 @@ class TorchScanner(Scanner):
             ttl_cutoff = self.compact_history.timeout_revision(
                 scanner_mod.EVENTS_TTL_SECONDS)
         applied = superseded = False
+        gc_error = None
         with self._merge_lock:
             with self._mlock:
                 mirror = self._mirror
@@ -1166,22 +1176,30 @@ class TorchScanner(Scanner):
                 t0 = time.monotonic()
                 stats = CompactStats(scanned=mirror.rows, mirror_path="none",
                                      phase_seconds=phases)
-                keep_idx = self._compact_gc(store, mirror, victims_by_part, stats)
-                phases["gc"] = time.monotonic() - t0
-                n_victims = sum(len(v) for v in victims_by_part.values())
-                stats.survivor_rows = mirror.rows - n_victims
-                stats.dirty_partitions = len(keep_idx)
                 try:
-                    superseded = self._compact_apply_locked(
-                        mirror, keep_idx, stats, phases)
-                    applied = True
+                    keep_idx = self._compact_gc(store, mirror, victims_by_part,
+                                                stats)
                 except Exception as e:
-                    self.compact_errors += 1
-                    self._compact_last_error = e
-                    self._emit_counter("kb.compact.errors")
+                    gc_error = e
+                else:
+                    phases["gc"] = time.monotonic() - t0
+                    n_victims = sum(len(v) for v in victims_by_part.values())
+                    stats.survivor_rows = mirror.rows - n_victims
+                    stats.dirty_partitions = len(keep_idx)
+                    try:
+                        superseded = self._compact_apply_locked(
+                            mirror, keep_idx, stats, phases)
+                        applied = True
+                    except Exception as e:
+                        self.compact_errors += 1
+                        self._compact_last_error = e
+                        self._emit_counter("kb.compact.errors")
             finally:
                 with self._mlock:
                     self._compact_active = False
+        if gc_error is not None:
+            self._quarantine_failed_gc(gc_error)
+            raise gc_error
         if superseded:
             self._quarantine_superseded_compact(stats)
         elif not applied:
@@ -1389,17 +1407,26 @@ class TorchScanner(Scanner):
         self.compact_escalations_total += 1
         self._emit_counter("kb.compact.escalations")
         stats.mirror_path = "escalated"
-        with self._mlock:
-            self._force_rebuild = True
-            self._poison_epoch += 1
-            self._enter_degraded_locked("quarantined")
-        self._kick_rebuild()
+        self._quarantine_and_rebuild()
+
+    def _quarantine_failed_gc(self, err: Exception) -> None:
+        """A gc that raised may have removed rows the mirror still serves:
+        count the error, then quarantine."""
+        self.compact_errors += 1
+        self._compact_last_error = err
+        self._emit_counter("kb.compact.errors")
+        self._quarantine_and_rebuild()
 
     def _quarantine_superseded_compact(self, stats) -> None:
         """A mirror swapped mid-pass may have been built from a store
         snapshot older than this compaction's deletes: quarantine, and one
         background rebuild converges."""
         stats.mirror_path = "superseded"
+        self._quarantine_and_rebuild()
+
+    def _quarantine_and_rebuild(self) -> None:
+        """Quarantine the mirror (reads take the host path) and kick one
+        background rebuild from the store."""
         with self._mlock:
             self._force_rebuild = True
             self._poison_epoch += 1

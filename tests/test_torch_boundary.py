@@ -22,10 +22,13 @@ from kubebrain_tpu_torch.storage.cuda.engine import CudaKvStorage
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kubebrain_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "kubebrain_tpu", "grpc", "google", "bench")
-#: the etcd3 front: the only port files that may import ``grpc`` and
-#: ``google.protobuf`` (the card's machine has neither)
+#: the etcd3 front and its client side: the only port files that may
+#: import ``grpc`` and ``google.protobuf`` (the card's machine has neither);
+#: ``replica/role.py`` only inside its forwarding paths
 FRONT = ("kubebrain_tpu_torch/proto/", "kubebrain_tpu_torch/server/",
-         "kubebrain_tpu_torch/endpoint/", "kubebrain_tpu_torch/cli.py")
+         "kubebrain_tpu_torch/endpoint/", "kubebrain_tpu_torch/cli.py",
+         "kubebrain_tpu_torch/client.py", "kubebrain_tpu_torch/tools.py",
+         "kubebrain_tpu_torch/replica/role.py")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -227,7 +230,10 @@ def test_chip_smoke_and_build_backend_run_without_the_front_dependencies():
     ``cryptography`` unimportable, ``chip_smoke.py`` imports and
     ``cli.build_backend`` wires a Backend over ``cuda`` on memkv with the
     device fan-out, one node and a sink of its own, and serves a write
-    and a Range: none of it reaches the gRPC front."""
+    and a Range; then it builds a ``--role follower`` backend whose role
+    bootstraps through ``ReplicaApplier`` and admits reads, without
+    loading the replication stream or the client: none of it reaches the
+    gRPC front."""
     code = BLOCKER + """
 import chip_smoke
 from kubebrain_tpu_torch import cli
@@ -255,6 +261,28 @@ loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
 assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
                              "cryptography")) for m in loaded), loaded
 assert "kubebrain_tpu_torch.server.service.peer" in sys.modules
+backend, store, role = cli.build_backend(
+    ["--role", "follower", "--leader-address", "127.0.0.1:1",
+     "--leader-info", "127.0.0.1:2", "--storage", "cuda", "--inner-storage",
+     "memkv", "--device", "cpu", "--identity", "127.0.0.1:2380",
+     "--tpu-fanout", "--max-staleness-ms", "5000"],
+    metrics=chip_smoke.RecordingMetrics())
+try:
+    from kubebrain_tpu_torch.replica import ReplicaApplier
+    assert type(role).__name__ == "FollowerRole" and not role.is_leader()
+    ReplicaApplier(backend, role=role).apply_bootstrap([], 5)
+    role.gate_read(5, False)  # an explicit revision at the watermark
+    role.gate_read(0, True)   # serializable, inside the bound
+finally:
+    role.close()
+    backend.close()
+    store.close()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "grpc", "google", "prometheus_client", "cryptography"))
+assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
+                             "cryptography")) for m in loaded), loaded
+assert "kubebrain_tpu_torch.replica.stream" not in sys.modules
+assert "kubebrain_tpu_torch.client" not in sys.modules
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -40,6 +40,7 @@ from kubebrain_tpu_torch.ops import compact_kernels, scan_kernels  # noqa: E402
 from kubebrain_tpu_torch.ops import fanout as tfanout  # noqa: E402
 from kubebrain_tpu_torch.ops import fanout_kernels  # noqa: E402
 from kubebrain_tpu_torch.ops import keys as keyops  # noqa: E402
+from kubebrain_tpu_torch.ops import launch_owner  # noqa: E402
 from kubebrain_tpu_torch.ops import scan as tscan  # noqa: E402
 from kubebrain_tpu_torch.storage.native import NativeKv  # noqa: E402
 
@@ -85,6 +86,7 @@ def cpu_shims(setattr_) -> None:
 
     def victim_mask(*args):
         compact_kernels.victim_mask_batch.launches += 1
+        launch_owner.count("victim_mask")
         return tcompact.victim_mask_tiled(*args)
 
     def visibility_mask(keys_t, revs, tomb, nv, starts, ends, unb, rrevs):
@@ -93,16 +95,20 @@ def cpu_shims(setattr_) -> None:
         wrapper = (scan_kernels.visibility_mask_batch if starts.shape[0] == 1
                    else scan_kernels.visibility_mask_batch_q)
         wrapper.launches += 1
+        launch_owner.count("scan_mask" if starts.shape[0] == 1
+                           else "scan_mask_q")
         return tscan.visibility_mask_blocked(keys_t, revs, tomb, nv, starts,
                                              ends, unb, rrevs)
 
     def fanout_dispatch(*args, index=None):
         fanout_kernels.fanout_dispatch.launches += 1
+        launch_owner.count("fanout_dispatch")
         # a small residency, so that the look-back walks past a window
         return tfanout.fanout_dispatch_ranked(*args, index=index, resident=3)
 
     def fanout_mask_range(*args, index=None):
         fanout_kernels.fanout_mask_range.launches += 1
+        launch_owner.count("fanout_mask_range")
         return tfanout.fanout_mask_rank_plain(*args, index=index)
 
     setattr_(compact_kernels, "compact",
@@ -495,13 +501,23 @@ def test_cli_flags_are_the_cli_defaults(tmp_path):
     assert args.tpu_fanout and args.single_node and args.data_dir == str(tmp_path)
 
 
-def test_sched_phase(shims, small_leases):
+@pytest.fixture
+def small_follower(monkeypatch):
+    """Phase (j) at a rehearsal's size: 300 follower watchers, 20 fenced
+    Counts."""
+    monkeypatch.setattr(chip_smoke, "FOLLOWER_WATCHERS", 300)
+    monkeypatch.setattr(chip_smoke, "FENCED_COUNTS", 20)
+
+
+def test_sched_phase(shims, small_leases, small_follower):
     """Phase (i): scheduled reads equal the unscheduled oracle at batch 1
     and 8, the batch-8 run reaches K2 with more than one query a launch,
     writes beside it form groups and are watched once in order, expired
     leases' keys are gone (K1), their deletes reach every watcher (K4),
     the leases survive a restart of native and the compaction (K3)
-    changes no answer; the sink agrees with the registries."""
+    changes no answer; the sink agrees with the registries. Then (j): a
+    follower of that leader, built by the CLI, bootstraps, follows, serves
+    every read as the leader does and launches K1-K4 itself."""
     out = chip_smoke.sched_phase(sched_args(), CPU)
     one, eight = out["reads"]["runs"][1], out["reads"]["runs"][8]
     assert one["batched"] == 0 and one["k2_launches"] == 0
@@ -516,6 +532,89 @@ def test_sched_phase(shims, small_leases):
     launches = out["launches"]
     for name in ("scan_mask", "scan_mask_q", "victim_mask", "fanout_dispatch"):
         assert launches[name] > 0, name
+    follower = out["follower"]
+    assert follower["bootstrap"]["keys"] > 0
+    assert follower["reads"]["fenced_counts"] >= 20
+    assert follower["watch"]["events"] == 400
+    assert follower["apply"]["events"] >= 400
+    for name, n in follower["follower_launches"].items():
+        assert 0 < n <= launches[name] or name == "fanout_mask_range", name
+    assert follower["follower_launches"]["fanout_mask_range"] == 0
+
+
+def test_follower_phase_catches_a_wrong_follower_answer(wired, monkeypatch,
+                                                        small_follower):
+    """A follower whose bootstrap writes one pod's value wrong answers that
+    namespace's reads unlike the leader, and phase (j) fails."""
+    from kubebrain_tpu_torch.replica import ReplicaApplier
+
+    backend, _sink, _top = wired
+    orig = ReplicaApplier._put_rows
+    target = chip_smoke.POD_NAMESPACES[3]
+
+    def wrong(self, batch, key, rev, value, deleted):
+        if key.startswith(target) and not deleted:
+            value = value + b"!"
+        return orig(self, batch, key, rev, value, deleted)
+
+    monkeypatch.setattr(ReplicaApplier, "_put_rows", wrong)
+    monkeypatch.setattr(chip_smoke, "FOLLOWER_WATCHERS", 100)
+    with pytest.raises(AssertionError, match="differ from the leader's"):
+        chip_smoke.follower_phase(backend, sched_args(sched_writes=80), CPU)
+
+
+@pytest.mark.parametrize("t, applied, fails", [
+    (103.0, 9, True),    # 3 s behind: inside the 5 s bound
+    (105.0, 9, False),   # 5 s behind: within the margin of the bound
+    (104.4, 9, True),    # 4.4 s behind: just past the margin
+    (108.0, 10, False),  # 7 s behind (revision 11 owed since 101)
+    (108.0, 11, True),   # nothing owed: not behind at all
+    (100.5, 9, True),    # revision 10 committed after the refusal
+])
+def test_stale_refusal_check(t, applied, fails):
+    """Phase (j) fails on a serializable read refused as stale while the
+    follower's staleness (the age of the oldest leader event it had not
+    applied, from the feed's commit times) was inside the bound by
+    ``STALE_MARGIN_S`` or more."""
+    feed = types.SimpleNamespace(events=[(10, "put", b"a", b"1"),
+                                         (11, "put", b"b", b"2")],
+                                 commit_ts=[100.0, 101.0])
+    traffic = types.SimpleNamespace(
+        role=types.SimpleNamespace(
+            config=types.SimpleNamespace(max_staleness_ms=5000.0)),
+        stale=[(t, applied, 9000.0)])
+    check = chip_smoke.FollowerTraffic.check_stale_refusals
+    if fails:
+        with pytest.raises(AssertionError, match="inside the 5000 ms bound"):
+            check(traffic, feed)
+    else:
+        assert check(traffic, feed)["refusals"] == 1
+
+
+def test_replication_feed_refuses_an_event_behind_a_progress_mark(wired):
+    """A progress mark that runs ahead of an owed event (the event then
+    arrives at or below the vouched revision) fails the feed: the applier
+    would drop that event as already applied."""
+    backend, _sink, top = wired
+
+    class Applier:
+        backend = types.SimpleNamespace(current_revision=lambda: 0)
+        seen: list = []
+
+        def apply_wire_events(self, events, header):
+            self.seen.append((len(events), header))
+
+    feed = chip_smoke.ReplicationFeed(backend, Applier(), top + 1)
+    try:
+        rev = backend.current_revision()
+        backend.watcher_hub.post_progress(feed.wid, rev + 5)
+        wait = time.monotonic() + 10
+        while feed.last < rev + 5 and time.monotonic() < wait:
+            time.sleep(0.01)
+        backend.create(b"/registry/pods/ns00/late", b"v")
+    finally:
+        with pytest.raises(AssertionError, match="ran ahead of an owed event"):
+            feed.close()
 
 
 def test_sched_phase_fails_when_batches_never_reach_k2(wired, monkeypatch):
@@ -628,6 +727,30 @@ def test_side_phases_process_returns_its_result(monkeypatch):
     try:
         assert side.result() == {"seconds": {"g": 1.0},
                                  "launches": {"scan_mask": 2}}
+    finally:
+        side.close()
+
+
+def test_side_process_runs_the_phases_it_is_given(monkeypatch):
+    """(i) and (j) run in a process of their own: the child is told which
+    function of the script to run, and a failure names those phases."""
+    monkeypatch.setattr(chip_smoke, "SIDE_CHILD", (
+        "import json, sys\n"
+        "json.dump({'phases': sys.argv[4]}, open(sys.argv[3], 'w'))\n"))
+    side = chip_smoke.SidePhases(small_args(), "sched_phases",
+                                 "phases (i) and (j)")
+    try:
+        assert side.result() == {"phases": "sched_phases"}
+        assert side.out.name == "sched_phases.json"
+    finally:
+        side.close()
+    assert callable(chip_smoke.sched_phases)
+    monkeypatch.setattr(chip_smoke, "SIDE_CHILD", "import sys; sys.exit(4)")
+    side = chip_smoke.SidePhases(small_args(), "sched_phases",
+                                 "phases (i) and (j)")
+    try:
+        with pytest.raises(AssertionError, match=r"\(i\) and \(j\) failed"):
+            side.result()
     finally:
         side.close()
 

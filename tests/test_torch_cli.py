@@ -1,6 +1,6 @@
 """The port's CLI (``kubebrain_tpu_torch/cli.py``): its wiring of the
 ``cuda`` engine, the engine hooks and the fan-out matchers, the flags it
-refuses until their modules are ported, the device default, and a kept
+refuses until their modules are ported, the follower role and its flags, the device default, and a kept
 divergence from the JAX CLI, which cannot start ``tpu`` over native."""
 
 import subprocess
@@ -144,11 +144,60 @@ def test_peers_follow_single_node():
     (("--mesh-wat", "2", "--tpu-fanout"), "ROADMAP item 10"),
     (("--aio-port", "23790"), "ROADMAP item 9"),
     (("--front-port", "23791"), "ROADMAP item 9"),
-    (("--role", "follower"), "ROADMAP item 9"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(SystemExit, match=item):
         cli.build_backend([*CUDA_ON_CPU, *flags], metrics=NoopMetrics())
+
+
+FOLLOWER = ("--role", "follower", "--leader-address", "127.0.0.1:2379",
+            "--leader-info", "127.0.0.1:8081")
+
+
+@pytest.mark.parametrize("flags,message", [
+    (("--role", "follower", "--leader-info", "127.0.0.1:8081"),
+     "requires --leader-address"),
+    (("--role", "follower", "--leader-address", "127.0.0.1:2379"),
+     "requires --leader-info"),
+    ((*FOLLOWER, "--aio-port", "23790"), "sync gRPC front only"),
+    ((*FOLLOWER, "--front-port", "23791"), "sync gRPC front only"),
+    ((*FOLLOWER, "--fence-timeout-ms", "0"), "--fence-timeout-ms must be > 0"),
+    ((*FOLLOWER, "--max-staleness-rev", "-1"), "must be >= 0"),
+    ((*FOLLOWER, "--max-staleness-ms", "-1"), "must be >= 0"),
+    (("--leader-address", "127.0.0.1:2379"), "require --role follower"),
+    (("--leader-info", "127.0.0.1:8081"), "require --role follower"),
+])
+def test_follower_flags_are_validated(flags, message):
+    """Each refusal of the JAX CLI's follower validation
+    (``kubebrain_tpu/cli.py:282-304``), which the JAX CLI gives too."""
+    with pytest.raises(SystemExit, match=message):
+        cli.build_backend([*CUDA_ON_CPU, *flags], metrics=NoopMetrics())
+    with pytest.raises(SystemExit, match=message):
+        jax_cli.validate_args(jax_cli.build_parser().parse_args(
+            [a if a != "cuda" else "tpu" for a in CUDA_ON_CPU
+             if a not in ("--device", "cpu")] + list(flags)))
+
+
+def test_follower_role_is_the_peers_surface():
+    """``--role follower`` builds ``FollowerRole`` as the peers (no leader,
+    so the lease reaper never reaps) over the ``cuda`` mirror, with the
+    flags' bounds, and starts no replication stream: the endpoint does."""
+    from kubebrain_tpu_torch.replica import FollowerRole
+
+    with Booted(*CUDA_ON_CPU, *FOLLOWER, "--max-staleness-rev", "7",
+                "--max-staleness-ms", "250", "--fence-timeout-ms", "1500",
+                "--tpu-fanout") as b:
+        role = b.peers
+        assert type(role) is FollowerRole and not role.is_leader()
+        assert (role.config.leader_address, role.config.leader_info) == (
+            "127.0.0.1:2379", "127.0.0.1:8081")
+        assert (role.config.max_staleness_rev, role.config.max_staleness_ms,
+                role.config.fence_timeout_s) == (7, 250.0, 1.5)
+        assert role._stream is None and role.status()["stream"] == {
+            "state": "not_started"}
+        assert isinstance(b.backend.scanner, TorchScanner)
+        assert type(b.backend.watcher_hub._fanout_matcher) is DeviceFanout
+        assert b.backend._kb_lease_reaper.peers is role
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -2,8 +2,10 @@
 etcdserverpb against ``kubebrain_tpu_torch.cli.build_endpoint`` over the
 ``cuda`` engine (on memkv unless a test says otherwise) with
 ``--device cpu``. Counterparts of ``tests/test_etcd_server.py``; the raw
-client (``EtcdClient``) and the backup tool (``kubebrain_tpu.tools``) are
-the JAX package's, since the generated messages are one set of classes.
+client (``EtcdClient``) and the backup tool of one case
+(``kubebrain_tpu.tools``) are the JAX package's, since the generated
+messages are one set of classes; the port's tool is held to it byte for
+byte.
 """
 
 import pathlib
@@ -364,6 +366,51 @@ def test_snapshot_save_restore_roundtrip(server, tmp_path):
         assert {kv.key: kv.value for kv in r.kvs} == {
             b"/registry/backup/a": b"va", b"/registry/backup/b": b"vb",
         }
+        c2.close()
+    finally:
+        ep2.close()
+        be2.close()
+        st2.close()
+
+
+def test_port_snapshot_tool_round_trip(server, tmp_path):
+    """The port's tool (``python -m kubebrain_tpu_torch.tools``): its
+    snapshot of a server is byte-identical to the JAX tool's of the same
+    server, and it restores into a fresh server."""
+    import subprocess
+    import sys as _sys
+
+    from kubebrain_tpu import tools as jax_tools
+    from kubebrain_tpu_torch import tools
+
+    client, backend, args = server
+    client.create(b"/registry/backup/port-a", b"pa")
+    client.create(b"/registry/backup/port-b", b"pb" * 300)
+    endpoint = f"127.0.0.1:{args.client_port}"
+    port_path, jax_path = tmp_path / "port.snap", tmp_path / "jax.snap"
+    rc = subprocess.run(
+        [_sys.executable, "-m", "kubebrain_tpu_torch.tools", "snapshot-save",
+         "--endpoint", endpoint, str(port_path)],
+        cwd=ROOT, capture_output=True, timeout=120)
+    assert rc.returncode == 0, rc.stderr.decode()
+    assert jax_tools.snapshot_save(endpoint, str(jax_path)) == 0
+    blob = port_path.read_bytes()
+    assert blob == jax_path.read_bytes()
+    header_rev, kvs = tools.parse_snapshot(blob)
+    assert (header_rev, kvs) == jax_tools.parse_snapshot(blob)
+    live = {k: v for k, v, _ in kvs if k.startswith(b"/registry/backup/")}
+    assert live[b"/registry/backup/port-b"] == b"pb" * 300
+
+    port2 = free_port()
+    ep2, be2, st2 = build_endpoint(port_flags(port2))
+    ep2.run()
+    try:
+        assert tools.main(["snapshot-restore", "--endpoint",
+                           f"127.0.0.1:{port2}", str(port_path)]) == 0
+        c2 = EtcdClient(f"127.0.0.1:{port2}")
+        r = c2.range_(rpc_pb2.RangeRequest(key=b"/registry/backup/",
+                                           range_end=b"/registry/backup0"))
+        assert {kv.key: kv.value for kv in r.kvs} == live
         c2.close()
     finally:
         ep2.close()

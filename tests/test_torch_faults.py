@@ -29,6 +29,7 @@ import threading
 import time
 import types
 
+import numpy as np
 import pytest
 
 import kubebrain_tpu.backend as jbackend
@@ -980,3 +981,65 @@ def test_head_read_resolves_again_past_a_compaction(window, kind):
         assert "CompactedError" in jax_got
     else:
         assert jax_got == "CompactedError"
+
+
+MIRROR_COLUMNS = ("keys_host", "lens_host", "revs_host", "tomb_host",
+                  "ttl_host", "n_valid")
+
+
+def test_gc_failing_midway_quarantines_and_rebuilds():
+    """A compaction whose gc fails at its second batch commit, after the
+    first batch of deletes landed: ``compact`` raises, the mirror is
+    quarantined, so no read returns a row the gc deleted from the store,
+    the error is counted, and the one background rebuild leaves a mirror
+    equal to a fresh build from the store."""
+    script = scripted(PORT, [])
+    b, store = mirror_backend(PORT, plane_=script, merge_threshold=4096)
+    sc = b.scanner
+    inner = store.untracked()
+    host = TScanner(inner, get_compact_revision=lambda _s: 0)
+    keys = [b"/t/k%04d" % i for i in range(600)]
+    try:
+        created = {k: b.create(k, b"v1-" + k) for k in keys}
+        for k in keys:
+            b.update(k, b"v2-" + k, created[k])
+        head = b.current_revision()
+        assert tbackend.wait_for_revision(b, head)
+        r_old = max(created.values())
+        sc.publish()
+        epoch = sc._poison_epoch
+        # hold the rebuild back so the quarantine is observed before it
+        assert sc._rebuild_kick.acquire(blocking=False)
+        # 600 superseded versions: gc batches of 256; the second fails
+        script.script = [None, ("error", 0.0)]
+        with pytest.raises(terrors.StorageError, match="injected"):
+            sc.compact(b"", b"", head)
+        gone = [k for k in keys if name_of(
+            lambda: inner.get(coder.encode_object_key(k, created[k])),
+            terrors.KeyNotFoundError) == "KeyNotFoundError"]
+        assert len(gone) == 256  # the first batch's deletes stand
+        assert sc._mirror_state == "quarantined"
+        assert sc._poison_epoch == epoch + 1 and sc.compact_errors == 1
+        assert isinstance(sc._compact_last_error, terrors.StorageError)
+        for rev in (r_old, head):
+            kvs, _ = sc.range_(b"/t/", b"/t0", rev)
+            want, _ = host.range_(b"/t/", b"/t0", rev)
+            got = [(kv.key, kv.value, kv.revision) for kv in kvs]
+            assert got == [(kv.key, kv.value, kv.revision) for kv in want]
+            assert not [r for r in got if r[0] in gone and r[2] == created[r[0]]]
+        assert sc.count(b"/t/", b"/t0", r_old) == host.count(
+            b"/t/", b"/t0", r_old)
+        sc._rebuild_kick.release()
+        sc._kick_rebuild()
+        wait_serving(sc)
+        assert sc.rebuild_bg_count == 1
+        fresh = sc._build_mirror_from_store()
+        with sc._mlock:
+            rebuilt = sc._mirror
+        for col in MIRROR_COLUMNS:
+            assert np.array_equal(getattr(rebuilt, col), getattr(fresh, col)), col
+        kvs, _ = sc.range_(b"/t/", b"/t0", head)
+        assert [kv.value for kv in kvs] == [b"v2-" + k for k in keys]
+    finally:
+        b.close()
+        store.close()
