@@ -139,7 +139,7 @@ result line):
     printed.
     (g) and (h) share no state with the other phases: a second process
     runs them, started after (d), while this one runs (c), (e) and (f),
-    and a third (i) and (j); their lines come as they are printed.
+    and a third (i), (j) and (k); their lines come as they are printed.
 (i) scheduled serving over native: (c)'s dataset loaded into native's
     data dir, which is then closed and booted by the port's CLI:
     ``kubebrain_tpu_torch.cli.build_backend`` with ``CLI_FLAGS`` (``cuda``
@@ -193,6 +193,33 @@ result line):
     serializable read may be refused as stale while the watermark lag is
     inside the bound, no off-device counter of the follower may move, and
     the follower's own K1, K2, K3 and K4 must launch.
+(k) the cluster replay, after (j) in its process: the port's workload
+    runner (``kubebrain_tpu_torch.workload``) replays
+    ``WorkloadSpec.for_cluster(REPLAY_NODES, seed=--seed)``, ``make
+    bench-cluster``'s default shape (1,000 nodes, 100 namespaces, 4,000
+    preloaded pods of 256-4,096 bytes, 1,000 controllers with a watch
+    each, 1,000 node leases, 30 s simulated at time scale 5, open loop:
+    pod churn, paged lists, aligned relist storms, keepalives, two
+    compactions), twice, each time on a fresh native store booted by
+    ``cli.build_backend`` with ``CLI_FLAGS``: (k1) unchanged, then (k2)
+    beside the fewest whole-``/registry/pods/`` watchers that make the
+    hub's interval index dense (60 at 1,000 nodes, computed by
+    :func:`replay_broad`), so that its blocks reach K4, which (k1) never
+    runs. The one cut: the runner's transport is in process
+    (:class:`InProcessTransport`: Range, Count and Txn through the
+    scheduler the etcd services share, keepalives on its SYSTEM lane,
+    watches on ``Backend.watch_range``, the scrape rendered from the
+    script's sink), since the card's machine has no ``grpcio``. A checker
+    thread reads back keys written in the last second. Each run fails
+    unless the schedule regenerates to its sha256, every acknowledged pod
+    write is at its revision in a final scan with no definite-failure key
+    and no ghost, the ``lincheck`` history of every pod write and point
+    read is linearizable, every watch equals ``match_oracle`` from its
+    start revision with none cancelled, no kept lease expired, a
+    compaction completed without a rebuild from the store, the report's
+    correctness bounds hold (query batches formed), K1-K3 ((k2): K1-K4)
+    launched under (k)'s owner and no off-device counter moved. Its
+    latency and shed bounds are printed, not held.
 
 Each phase's seconds are printed before the result lines.
 
@@ -207,7 +234,7 @@ three compares per pair and the rank searches) and the full-scan bound of
 every valid row (for K4/K5 the compare bound, 2C + 1 compares per pair).
 
 Output, last three lines: the kernels JSON (with each kernel's launches on
-the follower of (j) beside the total), the ``nvidia-smi`` name and power
+the follower of (j) and in the replay of (k) beside the total), the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 ``--watch-ab DIR`` runs only the watch drive on an empty store, through
@@ -242,6 +269,12 @@ import torch
 
 from kubebrain_tpu_torch import _build, cli, coder
 from kubebrain_tpu_torch.backend import Backend, BackendConfig, CompactedError
+from kubebrain_tpu_torch.backend.errors import (
+    CASRevisionMismatchError,
+    FutureRevisionError,
+    KeyExistsError,
+    WatchExpiredError,
+)
 from kubebrain_tpu_torch.backend.common import (
     LAST_REV_KEY,
     TOMBSTONE,
@@ -249,11 +282,17 @@ from kubebrain_tpu_torch.backend.common import (
     WatchEvent,
 )
 from kubebrain_tpu_torch.backend.scanner import EVENTS_TTL_SECONDS, Scanner
-from kubebrain_tpu_torch.backend.watcherhub import ProgressMarker, WatcherHub
+from kubebrain_tpu_torch.backend.watcherhub import (
+    ProgressMarker,
+    WatcherHub,
+    _RangeIndex,
+)
 from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
 from kubebrain_tpu_torch.faults import FaultPlane, FaultyStorage, generate
 from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
 from kubebrain_tpu_torch.fanout.dispatch import max_block_events
+from kubebrain_tpu_torch.lease.registry import LeaseNotFoundError
+from kubebrain_tpu_torch.lincheck import History
 from kubebrain_tpu_torch.metrics import Metrics
 from kubebrain_tpu_torch.ops import compact, compact_kernels, fanout, fanout_kernels
 from kubebrain_tpu_torch.ops import scan, scan_kernels
@@ -279,6 +318,8 @@ from kubebrain_tpu_torch.storage.errors import (
 )
 from kubebrain_tpu_torch.storage.cuda.encode import build_encoding
 from kubebrain_tpu_torch.trace import STAGE_METRIC, TRACER
+from kubebrain_tpu_torch.workload import WorkloadSpec, generator, slo
+from kubebrain_tpu_torch.workload.runner import WorkloadRunner
 from kubebrain_tpu_torch.storage.cuda.engine import (
     _part_indices_of_mask,
     bound_rows,
@@ -2739,13 +2780,20 @@ def side_phases(args) -> dict:
 
 
 def sched_phases(args) -> dict:
-    """(i) and (j), in the process a :class:`SidePhases` starts."""
+    """(i), (j) and (k), in the process a :class:`SidePhases` starts."""
+    dev = resolve_device()
     t0 = time.perf_counter()
-    served = sched_phase(args, resolve_device())
+    served = sched_phase(args, dev)
     j = served["follower"]["seconds"]
-    return {"seconds": {"i": time.perf_counter() - t0 - j, "j": j},
-            "launches": served["launches"],
-            "follower_launches": served["follower"]["follower_launches"]}
+    t1 = time.perf_counter()
+    replayed = replay_phase(args, dev)
+    launches = collections.Counter(served["launches"])
+    launches.update(replayed["launches"])
+    return {"seconds": {"i": t1 - t0 - j, "j": j,
+                        "k": time.perf_counter() - t1},
+            "launches": dict(launches),
+            "follower_launches": served["follower"]["follower_launches"],
+            "replay_launches": replayed["owner_launches"]}
 
 
 def deployed_phases(args, dev) -> dict:
@@ -4514,6 +4562,742 @@ def follower_phase(leader, args, dev) -> dict:
         status.close()
 
 
+# ------------------------------------------------------------------ phase k
+#: (k)'s cluster size: ``make bench-cluster``'s default shape
+#: (``Makefile:95``, ``N ?= 1000``; docs/workloads.md)
+REPLAY_NODES = 1000
+#: the kernels each replay of (k) must launch; (k2) adds K4
+REPLAY_KERNELS = ("scan_mask", "scan_mask_q", "victim_mask")
+#: the owner (k)'s scanner and matcher count their launches under
+REPLAY_OWNER = "replay"
+#: the checker thread's point reads go to keys written this recently (s)
+RECENT_S = 1.0
+#: the checker thread's pause between two point reads (s)
+POINT_READ_PAUSE_S = 0.002
+#: the histogram buckets of the port's Prometheus sink (``metrics/prom.py``)
+PROM_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+#: a key-value as the etcd client returns it
+ReplayKV = collections.namedtuple("ReplayKV", "key value mod_revision")
+
+
+def prom_name(name: str) -> str:
+    return name.replace(".", "_").replace("-", "_")
+
+
+def prom_labels(tags: tuple) -> str:
+    if not tags:
+        return ""
+    body = ",".join('%s="%s"' % (k, str(v).replace("\\", "\\\\")
+                                 .replace('"', '\\"')) for k, v in tags)
+    return "{" + body + "}"
+
+
+def prom_text(sink: RecordingMetrics) -> str:
+    """``sink``'s series in the Prometheus text exposition that the port's
+    Prometheus sink serves on ``/metrics`` (the names with dots as
+    underscores, ``_total`` after a counter's, cumulative ``_bucket``
+    series over its buckets, ``_count`` and ``_sum``), which
+    ``workload.slo.parse_prom`` reads."""
+    with sink.lock:
+        counters = list(sink.counters.items())
+        hists = [(k, list(v)) for k, v in sink.histograms.items()]
+        gauges = list(sink.gauges.items()) + list(sink.gauge_fns.items())
+    lines = []
+    for (name, tags), v in counters:
+        pname = prom_name(name)
+        if not pname.endswith("_total"):
+            pname += "_total"
+        lines.append(f"{pname}{prom_labels(tags)} {float(v)!r}")
+    for (name, tags), vs in hists:
+        pname = prom_name(name)
+        arr = np.sort(np.asarray(vs, dtype=np.float64))
+        for le in PROM_BUCKETS:
+            n = int(np.searchsorted(arr, le, side="right"))
+            lines.append(f"{pname}_bucket"
+                         f"{prom_labels(tags + (('le', repr(le)),))} {n}")
+        lines.append(f"{pname}_bucket{prom_labels(tags + (('le', '+Inf'),))}"
+                     f" {len(arr)}")
+        lines.append(f"{pname}_count{prom_labels(tags)} {len(arr)}")
+        lines.append(f"{pname}_sum{prom_labels(tags)} {float(arr.sum())!r}")
+    for (name, tags), v in gauges:
+        if callable(v):
+            try:
+                v = v()
+            except Exception:
+                continue  # a gone subject (a dropped watcher's backlog)
+        lines.append(f"{prom_name(name)}{prom_labels(tags)} {float(v)!r}")
+    return "\n".join(lines) + "\n"
+
+
+class ReplayHistory:
+    """The pod writes and head point-reads of (k) as a
+    ``lincheck.History``, and the keys written in the last
+    :data:`RECENT_S` seconds, which the checker thread reads."""
+
+    def __init__(self):
+        self.history = History()
+        self.lock = threading.Lock()
+        self.recent: collections.deque = collections.deque()
+
+    def record(self, kind: str, key: bytes, call: float, ret: float,
+               **kw) -> None:
+        if not key.startswith(generator.PODS_PREFIX):
+            return
+        with self.lock:
+            self.history.record(0, kind, key, call, ret, **kw)
+            if kind != "get" and kw.get("ok"):
+                self.recent.append((ret, key))
+
+    def recent_keys(self, now: float) -> list:
+        with self.lock:
+            while self.recent and self.recent[0][0] < now - RECENT_S:
+                self.recent.popleft()
+            return [k for _t, k in self.recent]
+
+
+class InProcessClient:
+    """The runner's client (``EtcdCompatClient``'s methods that the runner
+    calls), entering where the etcd services enter: Range, Count and Txn
+    through the request scheduler the services share
+    (``server/etcd/kv.py``, its lanes ``sched/lanes.py``), a single-key
+    Range on ``Backend.get`` (``kv.py``'s point-read path), Compact on
+    ``Backend.compact``, LeaseGrant on the lease registry. The outcomes the
+    front turns into a Txn's ``succeeded = false`` come back the same way;
+    the other errors are raised as the scheduler and the Backend raise
+    them (the transport classifies them as the front's status codes)."""
+
+    def __init__(self, transport: "InProcessTransport", name: str):
+        self.t = transport
+        self.name = name
+        self.sched = transport.backend._kb_scheduler
+        #: the gRPC client's transparent retries (none in process)
+        self.retries_sent: dict = {}
+
+    # ------------------------------------------------------------ writes
+    def _write(self, kind: str, key: bytes, fn, value: bytes | None = None,
+               prev_rev: int = 0):
+        """``fn()`` with its outcome recorded in the history: ``(ok,
+        revision)``, ok False on the conflicts a Txn reports as failed."""
+        rec = self.t.history
+        call = time.monotonic()
+        kw = {"value": value} if value is not None else {}
+        if kind != "create":
+            kw["prev_rev"] = prev_rev
+        try:
+            rev = fn()
+        except (KeyExistsError, CASRevisionMismatchError) as e:
+            if rec is not None:
+                rec.record(kind, key, call, time.monotonic(), ok=False,
+                           err="conflict", conflict_rev=e.revision, **kw)
+            return False, e.revision
+        except KeyNotFoundError:
+            if rec is not None and kind == "delete":
+                rec.record(kind, key, call, time.monotonic(), ok=False,
+                           err="notfound", **kw)
+            return False, 0
+        except (SchedResultTimeoutError, UncertainResultError):
+            # dispatched, outcome unknown: either branch is legal
+            if rec is not None:
+                rec.record(kind, key, call, math.inf, ok=None, **kw)
+            raise
+        if rec is not None:
+            rec.record(kind, key, call, time.monotonic(), ok=True, rev=rev,
+                       **kw)
+        return True, rev
+
+    def create(self, key: bytes, value: bytes, lease: int = 0):
+        return self._write("create", key, lambda: self.sched.create(
+            key, value, lease=lease, client=self.name), value)
+
+    def create_bulk(self, items, lease: int = 0, window: int = 128) -> list:
+        """Concurrent creates, up to ``window`` in flight (the gRPC
+        client's pipelined futures), results in input order."""
+        items = list(items)
+        with ThreadPoolExecutor(min(window, 64)) as pool:
+            return list(pool.map(lambda kv: self.create(kv[0], kv[1], lease),
+                                 items))
+
+    def update(self, key: bytes, value: bytes, mod_revision: int,
+               lease: int = 0):
+        return self._write("update", key, lambda: self.sched.update(
+            key, value, mod_revision, lease=lease, client=self.name),
+            value, mod_revision)
+
+    def delete(self, key: bytes, mod_revision: int = 0) -> bool:
+        ok, _rev = self._write("delete", key, lambda: self.sched.delete(
+            key, mod_revision, client=self.name)[0], None, mod_revision)
+        return ok
+
+    def compact(self, revision: int) -> None:
+        scanner = self.t.backend.scanner
+        rebuilds = scanner.full_rebuild_total
+        if self.t.rebuilds is None:
+            self.t.rebuilds = rebuilds
+        self.t.backend.compact(revision)
+        self.t.compact_rebuilds.append(scanner.full_rebuild_total - rebuilds)
+
+    def lease_grant(self, ttl: int, lease_id: int = 0):
+        lease = self.t.backend._kb_lease.grant(max(int(ttl), 1), lease_id)
+        return lease.id, int(lease.granted_ttl)
+
+    # ------------------------------------------------------------- reads
+    def get(self, key: bytes, revision: int = 0):
+        call = time.monotonic()
+        try:
+            kv = self.t.backend.get(key, revision)
+        except KeyNotFoundError:
+            if self.t.history is not None and not revision:
+                self.t.history.record("get", key, call, time.monotonic(),
+                                      ok=False)
+            return None
+        value = bytes(kv.value)
+        if self.t.history is not None and not revision:
+            self.t.history.record("get", key, call, time.monotonic(),
+                                  ok=True, value=value, rev=kv.revision)
+        return ReplayKV(kv.key, value, kv.revision)
+
+    def list(self, start: bytes, end: bytes, revision: int = 0,
+             limit: int = 0, page: int = 1000, stats: dict | None = None,
+             serializable: bool = False):
+        """Pages of ``page`` through the scheduler, each later page pinned
+        to the first's revision, as the gRPC client pages."""
+        out, key, list_rev = [], start, revision
+        while True:
+            want = min(page, limit - len(out)) if limit else page
+            if stats is not None:
+                stats["rpcs"] = stats.get("rpcs", 0) + 1
+            res = self.sched.list_(key, end, list_rev, want, client=self.name)
+            if list_rev == 0:
+                list_rev = res.revision
+            out.extend(ReplayKV(kv.key, bytes(kv.value), kv.revision)
+                       for kv in res.kvs)
+            if not res.more or (limit and len(out) >= limit):
+                return out, list_rev
+            key = res.kvs[-1].key + b"\x00"
+
+    def list_unpaged(self, start: bytes, end: bytes, revision: int = 0,
+                     serializable: bool = False):
+        res = self.sched.list_(start, end, revision, 0, client=self.name)
+        return ([ReplayKV(kv.key, bytes(kv.value), kv.revision)
+                 for kv in res.kvs], res.revision)
+
+    def count(self, start: bytes, end: bytes,
+              serializable: bool = False) -> int:
+        return self.sched.count(start, end, 0, client=self.name)[0]
+
+    def current_revision(self) -> int:
+        return self.t.backend.current_revision()
+
+    def close(self) -> None:
+        pass
+
+
+class ReplayWatch:
+    """One watch of the in-process ``WatchMux``: its range, start revision,
+    delivered revisions and whether the hub dropped it."""
+
+    __slots__ = ("key", "range_end", "start_revision", "wid", "events",
+                 "revisions", "cancelled", "broad")
+
+    def __init__(self, key, range_end, start_revision, broad=False):
+        self.key, self.range_end = key, range_end
+        self.start_revision = start_revision
+        self.wid = -1
+        self.events = 0
+        self.revisions: list[int] = []
+        self.cancelled = False
+        self.broad = broad
+
+
+class InProcessWatchMux:
+    """The runner's ``WatchMux`` over ``Backend.watch_range`` (what the
+    etcd Watch service calls): each watch's queue, a :class:`NotifyingQueue`
+    of the hub's bounded size (so the hub's slow-consumer drop applies),
+    drained by one of ``streams`` consumer threads that counts and records
+    the delivered revisions. A watch the hub drops is cancelled, as the
+    Watch service cancels it."""
+
+    def __init__(self, backend, streams: int):
+        self.backend = backend
+        self._readies = [collections.deque() for _ in range(streams)]
+        self._all: list[ReplayWatch] = []
+        self._lock = threading.Lock()
+        self._done = threading.Event()
+        self._threads = [threading.Thread(target=self._consume, args=(r,),
+                                          daemon=True, name="kb-wl-watch")
+                         for r in self._readies]
+        for t in self._threads:
+            t.start()
+
+    def add(self, key: bytes, range_end: bytes = b"", start_revision: int = 0,
+            shard: int | None = None, timeout: float = 30.0,
+            broad: bool = False) -> ReplayWatch:
+        w = ReplayWatch(key, range_end, start_revision, broad)
+        with self._lock:
+            i = len(self._all) if shard is None else shard
+            ready = self._readies[i % len(self._readies)]
+            self._all.append(w)
+
+        def factory(maxsize):
+            q = NotifyingQueue(maxsize, ready)
+            q.watch = w
+            return q
+
+        try:
+            w.wid, _q = self.backend.watch_range(key, range_end,
+                                                 start_revision,
+                                                 queue_factory=factory)
+        except WatchExpiredError:
+            w.cancelled = True  # below the compaction: the client re-lists
+        return w
+
+    def _consume(self, ready) -> None:
+        while True:
+            try:
+                q = ready.popleft()
+            except IndexError:
+                if self._done.is_set() and not ready:
+                    return
+                time.sleep(0.002)
+                continue
+            while True:
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is None:
+                    q.watch.cancelled = True
+                elif not isinstance(item, ProgressMarker):
+                    q.watch.events += len(item)
+                    q.watch.revisions.extend(e.revision for e in item)
+
+    def watchers(self) -> list:
+        with self._lock:
+            return list(self._all)
+
+    def total_events(self) -> int:
+        return sum(w.events for w in self.watchers())
+
+    def cancelled_count(self) -> int:
+        return sum(1 for w in self.watchers() if w.cancelled)
+
+    def resumed_total(self) -> int:
+        return 0  # no stream to reset in process
+
+    def close(self) -> None:
+        """Stops once every dealt revision has been streamed and drained."""
+        deadline = time.monotonic() + 60
+        while self.backend.flushed_revision() < \
+                self.backend.current_revision() \
+                or any(self._readies):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        self._done.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        for w in self.watchers():
+            if w.wid >= 0 and not w.cancelled:
+                self.backend.unwatch(w.wid)
+
+
+class InProcessLeaseMux:
+    """The runner's ``LeaseMux``: each keepalive admitted on the SYSTEM lane
+    as the Lease service's ``keepalive_one`` admits it
+    (``server/etcd/misc.py``), from ``streams`` threads; TTL 0 is the etcd
+    encoding of an expired lease."""
+
+    def __init__(self, backend, streams: int):
+        self.backend = backend
+        self.sent = self.acked = self.expired_acks = self.shed = 0
+        self._lock = threading.Lock()
+        self._qs = [queue.Queue() for _ in range(streams)]
+        self._threads = [threading.Thread(target=self._run, args=(q,),
+                                          daemon=True, name="kb-wl-lease")
+                         for q in self._qs]
+        for t in self._threads:
+            t.start()
+
+    def keepalive_async(self, lease_id: int, shard: int = 0,
+                        on_ack=None) -> bool:
+        with self._lock:
+            self.sent += 1
+        self._qs[shard % len(self._qs)].put((lease_id, on_ack,
+                                             time.monotonic()))
+        return True
+
+    def _run(self, q) -> None:
+        reg, sched = self.backend._kb_lease, self.backend._kb_scheduler
+        while True:
+            item = q.get()
+            try:
+                if item is None:
+                    return
+                lid, on_ack, t0 = item
+                try:
+                    ttl = sched.submit(lambda: reg.keepalive(lid),
+                                       lane=Lane.SYSTEM,
+                                       client="lease-keepalive")
+                except SchedOverloadError:
+                    with self._lock:
+                        self.shed += 1
+                    continue
+                with self._lock:
+                    self.acked += 1
+                    self.expired_acks += ttl <= 0
+                if on_ack is not None:
+                    on_ack(time.monotonic() - t0, ttl)
+            finally:
+                q.task_done()
+
+    def flush(self, timeout: float = 30.0) -> bool:
+        deadline = time.monotonic() + timeout
+        while any(q.unfinished_tasks for q in self._qs):
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def close(self) -> None:
+        for q in self._qs:
+            q.put(None)
+        for t in self._threads:
+            t.join(timeout=30)
+
+
+class InProcessTransport:
+    """The workload runner's transport into one Backend of this process,
+    in place of the spawned servers and the gRPC front, which need
+    ``grpcio`` (the card's machine has none). Its scrape renders the
+    :class:`RecordingMetrics` sink the CLI wired as the metrics. It counts
+    no RPCs, so the report names the RPC-count reconcile as not
+    applicable. The watch multiplexer it hands out registers
+    ``broad`` whole-``/registry/pods/`` watchers first, from the next
+    revision."""
+
+    in_process = True
+    #: the errors a gRPC call would raise as a status code
+    rpc_errors = (SchedOverloadError, UncertainResultError, StorageError,
+                  LeaseNotFoundError, FutureRevisionError, CompactedError)
+
+    def __init__(self, backend, sink: RecordingMetrics, device: str,
+                 history: ReplayHistory | None = None, broad: int = 0):
+        self.backend = backend
+        self.sink = sink
+        self.device = device
+        self.history = history
+        self.broad = broad
+        self.clients = 0
+        #: full rebuilds from the store that each compaction caused, and
+        #: ``full_rebuild_total`` as the first compaction began
+        self.compact_rebuilds: list[int] = []
+        self.rebuilds: int | None = None
+        self.muxes: list[InProcessWatchMux] = []
+
+    def client(self, target, **_kw) -> InProcessClient:
+        self.clients += 1
+        return InProcessClient(self, f"replay-{self.clients}")
+
+    def watch_mux(self, client, streams: int, resume: bool):
+        mux = InProcessWatchMux(self.backend, streams)
+        rev = self.backend.current_revision() + 1
+        for i in range(self.broad):
+            mux.add(generator.PODS_PREFIX,
+                    coder.prefix_end(generator.PODS_PREFIX), rev, shard=i,
+                    broad=True)
+        self.muxes.append(mux)
+        return mux
+
+    def lease_mux(self, client, streams: int):
+        return InProcessLeaseMux(self.backend, streams)
+
+    def is_shed(self, e: BaseException) -> bool:
+        return (isinstance(e, SchedOverloadError)
+                and not isinstance(e, SchedResultTimeoutError))
+
+    def classify(self, e: BaseException, write: bool) -> str:
+        if isinstance(e, (SchedResultTimeoutError, UncertainResultError)):
+            return "ambiguous"
+        return "safe"
+
+    def describe(self, e: BaseException) -> str:
+        return f"{type(e).__name__}: {e}"
+
+    def scrape(self, host: str, info_port: int):
+        return slo.parse_prom(prom_text(self.sink))
+
+
+def point_reader(transport: InProcessTransport, stop: threading.Event,
+                 seed: int) -> None:
+    """The checker thread: head point-reads, each of a key written in the
+    last :data:`RECENT_S` seconds, into the history."""
+    client = transport.client("in-process")
+    rng = random.Random(seed)
+    while not stop.wait(POINT_READ_PAUSE_S):
+        keys = transport.history.recent_keys(time.monotonic())
+        if keys:
+            client.get(keys[rng.randrange(len(keys))])
+
+
+def check_replay_watches(mux: InProcessWatchMux, events: list) -> dict:
+    """Every watch's delivered revisions against ``match_oracle`` over the
+    hub's event stream from its start revision: none dropped, none
+    missing, none extra, in revision order."""
+    revs = np.array([e.revision for e in events], dtype=np.int64)
+    if (np.diff(revs) <= 0).any():
+        raise AssertionError("(k) the hub streamed events out of revision "
+                             "order")
+    watches = mux.watchers()
+    ranges = sorted({(w.key, w.range_end) for w in watches})
+    col = {r: j for j, r in enumerate(ranges)}
+    mask = match_oracle(events, [(j, s, e, 0)
+                                 for j, (s, e) in enumerate(ranges)])
+    delivered = 0
+    for w in watches:
+        if w.cancelled:
+            raise AssertionError(f"(k) watch [{w.key!r}, {w.range_end!r}) "
+                                 f"from {w.start_revision} was cancelled")
+        want = revs[mask[:, col[(w.key, w.range_end)]]
+                    & (revs >= w.start_revision)]
+        if w.revisions != want.tolist():
+            raise AssertionError(
+                f"(k) watch [{w.key!r}, {w.range_end!r}) from "
+                f"{w.start_revision}: {len(w.revisions)} events, the oracle "
+                f"{len(want)}")
+        delivered += len(want)
+    return {"watchers": len(watches),
+            "broad": sum(1 for w in watches if w.broad),
+            "events": len(events), "delivered": delivered}
+
+
+def replay_broad(spec: WorkloadSpec) -> int:
+    """The fewest whole-``/registry/pods/`` watchers that, beside every
+    controller watch of ``spec`` (one namespace prefix each), make the
+    hub's interval index over them dense (``_RangeIndex.dense``), so that
+    the hub routes every block to the CUDA matcher, K4. Without them it
+    serves ``for_cluster``'s informers from the index: its blocks (at most
+    a few dozen events x 1,000 watchers) stay under the
+    ``WatcherHub.DEVICE_PAIRS`` from which a CUDA matcher takes one."""
+    n = spec.nodes * spec.controllers_per_node
+    filters = {}
+    for w in range(n):
+        prefix = generator.PODS_PREFIX + generator.ns_name(
+            w % spec.namespaces) + b"/"
+        filters[w] = (prefix, coder.prefix_end(prefix), 0)
+    broad = (generator.PODS_PREFIX, coder.prefix_end(generator.PODS_PREFIX),
+             0)
+    for b in itertools.count():
+        if _RangeIndex(filters).dense:
+            return b
+        filters[n + b] = broad
+
+
+def replay_summary(report: dict) -> dict:
+    """What (k) prints of the report: ops/s, p50 and p99 per lane and per
+    op kind, sheds, the pacer's largest dispatch lag, write-group and
+    query-batch sizes."""
+    sched = report["sched"]
+    return {
+        "ops_per_sec": report["replay"]["ops_per_sec"],
+        "wall_s": report["replay"]["wall_s"],
+        "preload_wall_s": report["replay"]["preload_wall_s"],
+        "max_dispatch_lag_s": report["replay"]["max_dispatch_lag_s"],
+        "lanes": {lane: {k: s[k] for k in ("count", "p50_ms", "p99_ms",
+                                            "shed", "errors")}
+                  for lane, s in report["lanes"].items()},
+        "op_kinds": {kind: {k: s[k] for k in ("count", "ok", "p50_ms",
+                                               "p99_ms", "shed", "errors",
+                                               "conflicts", "skipped")}
+                     for kind, s in report["op_kinds"].items()},
+        "sheds": sched["shed_total"],
+        "query_batches": sched["batched_launches"],
+        "query_batch_mean": (sched["batched_requests"]
+                             / max(sched["batched_launches"], 1)),
+        "write_groups": sched["write_batched_groups"],
+        "write_group_mean": (sched["write_batched_ops"]
+                             / max(sched["write_batched_groups"], 1)),
+        "watch": {k: report["watch"][k] for k in ("watchers", "events",
+                                                  "cancelled",
+                                                  "lag_queue_p99_s")},
+        "compact": {k: report["compact"][k] for k in ("completed", "phases",
+                                                      "full_rebuilds")},
+    }
+
+
+def replay_run(spec: WorkloadSpec, dev, seed: int, broad: int,
+               kernels: tuple, label: str) -> dict:
+    """One replay of (k): ``spec`` replayed by the port's workload runner
+    on a fresh native store of its own, booted by ``cli.build_backend``
+    with ``CLI_FLAGS``, through an :class:`InProcessTransport` (the one
+    cut: no gRPC on the card) that registers ``broad``
+    whole-``/registry/pods/`` watchers beside the workload's.
+
+    It fails unless: the schedule regenerates to the same sha256 (the
+    runner's self-check); the runner's acknowledged-write check, over the
+    quiescent store, finds every acknowledged pod write at its revision, no
+    definite-failure key present and no ghost; the ``lincheck`` history of
+    every pod create, update and delete and the checker thread's head
+    point-reads is linearizable within its budget; every watch's events
+    equal ``match_oracle`` over the hub's stream from its start revision
+    (none cancelled) and no lease expired while kept alive; a compaction
+    completed and moved no full rebuild; the report's correctness bounds
+    of ``slo.evaluate`` hold (``min_batched_requests`` among them, so the
+    relist storms reached K2 as query batches); each kernel of
+    ``kernels`` launched under (k)'s owner; and no off-device counter
+    moved. The latency and shed bounds of ``slo.evaluate`` are printed
+    with their limits and not held: the host sets them (PERF.md §5)."""
+    d = data_dir("replay")
+    sink = RecordingMetrics()
+    take_launches()
+    launch_owner.take(REPLAY_OWNER)
+    backend, store, _peers = cli.build_backend(cli_args(d, dev), metrics=sink)
+    history = ReplayHistory()
+    stop = threading.Event()
+    reader = None
+    hub = backend.watcher_hub
+    streamed: list = []
+    try:
+        backend.scanner.launch_owner = REPLAY_OWNER
+        hub._fanout_matcher.launch_owner = REPLAY_OWNER
+        orig_stream = hub.stream
+
+        def recording(batch):
+            orig_stream(batch)
+            streamed.append(list(batch))
+
+        hub.stream = recording
+        transport = InProcessTransport(backend, sink, dev.type, history,
+                                       broad=broad)
+        reader = threading.Thread(target=point_reader,
+                                  args=(transport, stop, seed),
+                                  daemon=True)
+        reader.start()
+        runner = WorkloadRunner(spec, write_report=False, transport=transport)
+        t0 = time.perf_counter()
+        report = runner.run()
+        replay_s = time.perf_counter() - t0
+        stop.set()
+        reader.join(timeout=60)
+        del hub.stream
+        events = [e for b in streamed for e in b]
+        launches = take_launches()
+        owned = launch_owner.take(REPLAY_OWNER)
+
+        consistency = runner._consistency_check(report["replay"]["drained"])
+        t1 = time.perf_counter()
+        lin = history.history.check()
+        lin_s = time.perf_counter() - t1
+        watch = check_replay_watches(transport.muxes[0], events)
+        passed, violations = report["slo"]["pass"], report["slo"]["violations"]
+        held = [v for v in violations
+                if not v.startswith(("lane ", "shed rate"))]
+        summary = replay_summary(report)
+        out = {"spec": {"nodes": spec.nodes, "seed": spec.seed,
+                        "sha256": report["trace"]["sha256"],
+                        "ops": report["trace"]["ops"]},
+               "replay_s": replay_s,
+               "summary": summary,
+               "reconcile": report["reconcile"],
+               "consistency": {k: consistency[k] for k in (
+                   "ok", "checked_keys", "acked_live", "acked_deleted",
+                   "ambiguous", "definite_failures", "scanned")},
+               "lincheck": {k: lin.get(k) for k in (
+                   "ok", "ops", "keys", "nodes_searched", "max_key_nodes",
+                   "violation")} | {"seconds": lin_s},
+               "watch": watch,
+               "blocks": {"count": len(streamed),
+                          "max_events": max(map(len, streamed), default=0)},
+               "rebuilds": {"in_compactions": transport.compact_rebuilds,
+                            "at_first_compaction": transport.rebuilds,
+                            "total": backend.scanner.full_rebuild_total},
+               "slo": {"pass": passed, "violations": violations,
+                       "bounds": report["slo"]["bounds"]},
+               "launches": launches, "owner_launches": owned}
+        log(f"{label}: {json.dumps(out)}")
+        if report["trace"]["sha256"] != generator.generate(spec).sha256() \
+                or not report["trace"]["determinism_checked"]:
+            raise AssertionError(f"{label} the schedule did not regenerate to the "
+                                 "same sha256")
+        if not consistency["ok"]:
+            raise AssertionError(
+                f"{label} acknowledged-write check failed: losses "
+                f"{consistency['losses']}, ghosts {consistency['ghosts']}, "
+                f"revision mismatches {consistency['rev_mismatches']}")
+        if not lin["ok"] or lin.get("truncated") or lin.get("truncated_keys"):
+            raise AssertionError(f"{label} the history is not linearizable: "
+                                 f"{lin.get('violation')}")
+        if report["watch"]["cancelled"] or \
+                report["leases"]["metrics"]["expired_delta"]:
+            raise AssertionError(
+                f"{label} {report['watch']['cancelled']} watchers cancelled, "
+                f"{report['leases']['metrics']['expired_delta']} leases "
+                f"expired while kept alive")
+        # the mirror booted on the empty store is rebuilt from the store
+        # when rows outgrow its key dictionary: the preload's pods, then the
+        # node-lease directory, which the replay's first writes open; from
+        # the first compaction on, full_rebuild_total must not move
+        rebuilds = transport.rebuilds
+        if report["op_kinds"].get("COMPACT", {}).get("ok", 0) < 1 or \
+                rebuilds is None or \
+                backend.scanner.full_rebuild_total != rebuilds:
+            raise AssertionError(
+                f"{label} no compaction completed, or the mirror was rebuilt "
+                f"from the store from the first compaction on: "
+                f"{transport.compact_rebuilds} in the compactions, "
+                f"full_rebuild_total {backend.scanner.full_rebuild_total} "
+                f"against {rebuilds} as the first began")
+        if held:
+            raise AssertionError(f"{label} correctness bounds of the SLO report "
+                                 f"failed: {held}")
+        missing = [k for k in kernels if owned.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{label} never launched {missing} under its "
+                                 f"owner: {owned}")
+        stayed_on_device(backend.scanner, rebuilds, label)
+        log(f"{label} the latency and shed bounds (held by the host, not "
+            f"gated): {'met' if passed else violations}; limits "
+            f"{report['slo']['bounds']}")
+        return out
+    finally:
+        stop.set()
+        if reader is not None:
+            reader.join(timeout=60)
+        backend.close()
+        store.close()
+        TRACER.metrics = None
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def replay_phase(args, dev, spec=None) -> dict:
+    """(k): the kube-apiserver traffic mix of
+    ``WorkloadSpec.for_cluster(REPLAY_NODES, seed=--seed)`` (``spec``
+    replaces it) replayed twice, each time on a fresh store and held to
+    every check of :func:`replay_run`: (k1) unchanged, where K1, K2 and
+    K3 must launch (the hub serves the informers from its interval index,
+    so K4 does not run), then (k2) beside the fewest
+    whole-``/registry/pods/`` watchers that route the hub's blocks to the
+    CUDA matcher (:func:`replay_broad`), where K4 must launch too."""
+    if spec is None:
+        spec = WorkloadSpec.for_cluster(REPLAY_NODES, seed=args.seed)
+    t0 = time.perf_counter()
+    generator.generate(spec)
+    host_s = time.perf_counter() - t0
+    log(f"(k) host speed: generate(WorkloadSpec(nodes={spec.nodes})) in "
+        f"{host_s:.3f} s")
+    cluster = replay_run(spec, dev, args.seed, 0, REPLAY_KERNELS, "(k1)")
+    broad = replay_broad(spec)
+    cohort = replay_run(spec, dev, args.seed, broad,
+                        REPLAY_KERNELS + ("fanout_dispatch",), "(k2)")
+    launches = collections.Counter(cluster["launches"])
+    launches.update(cohort["launches"])
+    owned = collections.Counter(cluster["owner_launches"])
+    owned.update(cohort["owner_launches"])
+    return {"host_generate_s": host_s, "cluster": cluster, "broad": cohort,
+            "launches": dict(launches), "owner_launches": dict(owned)}
+
+
 AB_CHILD = """
 import importlib.util, json, sys
 tree, script = sys.argv[1:3]
@@ -4622,7 +5406,7 @@ def main() -> int:
 
     t_side = time.perf_counter()
     side = SidePhases(args)
-    sched = SidePhases(args, "sched_phases", "phases (i) and (j)")
+    sched = SidePhases(args, "sched_phases", "phases (i), (j) and (k)")
     try:
         t0 = time.perf_counter()
         store, top = load_store(args.keys, args.seed, dev)
@@ -4647,12 +5431,13 @@ def main() -> int:
         sched.close()
     seconds.update(side_out["seconds"])
     seconds.update(served["seconds"])
-    seconds["c-j, three processes"] = time.perf_counter() - t_side
+    seconds["c-k, three processes"] = time.perf_counter() - t_side
     log(f"phase seconds: {json.dumps(seconds)}")
     launches["victim_mask"] = compacted["launches"]
     main_cases["victim_mask"] = compacted["case"]
     launches.update(fanned["watch"]["launches"])
-    # the launches of the deployed engines', the chaos, (i)'s and (j)'s paths
+    # the launches of the deployed engines', the chaos, (i)'s, (j)'s and
+    # (k)'s paths
     for name, n in itertools.chain(side_out["launches"].items(),
                                    served["launches"].items()):
         launches[name] = launches.get(name, 0) + n
@@ -4665,6 +5450,7 @@ def main() -> int:
                       fanned["cases"].items() if n == name]
 
     follower_launches = served["follower_launches"]
+    replay_launches = served["replay_launches"]
     kernels = []
     for name in SOURCES:
         m = main_cases[name]
@@ -4677,6 +5463,7 @@ def main() -> int:
             "bound_by": m["bound_by"], "bound_full_ms": m["bound_full_ms"],
             "library_ms": None,
             "follower_launches": follower_launches[name],
+            "replay_launches": replay_launches.get(name, 0),
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -24,11 +24,13 @@ PORT_FILES = sorted((ROOT / "kubebrain_tpu_torch").rglob("*.py")) + [ROOT / "chi
 FORBIDDEN = ("jax", "jaxlib", "kubebrain_tpu", "grpc", "google", "bench")
 #: the etcd3 front and its client side: the only port files that may
 #: import ``grpc`` and ``google.protobuf`` (the card's machine has neither);
-#: ``replica/role.py`` only inside its forwarding paths
+#: ``replica/role.py`` only inside its forwarding paths and
+#: ``workload/runner.py`` only inside its gRPC transport
 FRONT = ("kubebrain_tpu_torch/proto/", "kubebrain_tpu_torch/server/",
          "kubebrain_tpu_torch/endpoint/", "kubebrain_tpu_torch/cli.py",
          "kubebrain_tpu_torch/client.py", "kubebrain_tpu_torch/tools.py",
-         "kubebrain_tpu_torch/replica/role.py")
+         "kubebrain_tpu_torch/replica/role.py",
+         "kubebrain_tpu_torch/workload/runner.py")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -283,6 +285,46 @@ assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
                              "cryptography")) for m in loaded), loaded
 assert "kubebrain_tpu_torch.replica.stream" not in sys.modules
 assert "kubebrain_tpu_torch.client" not in sys.modules
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def test_workload_checker_and_entry_load_without_the_front_dependencies():
+    """With ``grpc``, ``google.protobuf``, ``prometheus_client`` and
+    ``cryptography`` unimportable, the workload harness (``workload/*``, the
+    runner included), ``lincheck`` and ``entry`` import, a schedule
+    generates, a runner is built and a history checks; only the runner's
+    gRPC transport needs ``grpc`` and says so when it is asked for it."""
+    code = BLOCKER + """
+from kubebrain_tpu_torch import entry, lincheck
+from kubebrain_tpu_torch.workload import (
+    WorkloadSpec, clock, generator, runner, slo, spec)
+
+spec = WorkloadSpec.for_smoke(4)
+assert generator.generate(spec).sha256()
+r = runner.WorkloadRunner(spec, write_report=False)
+assert isinstance(r.transport, runner.GrpcTransport)
+try:
+    r.transport.rpc_errors
+except ImportError:
+    pass
+else:
+    raise AssertionError("the gRPC transport loaded grpc")
+h = lincheck.History()
+h.record(0, "create", b"k", 0.0, 1.0, value=b"v", ok=True, rev=1)
+assert h.check()["ok"]
+step, args = entry.entry("cpu")
+assert int(step(*args)[1]) == 128
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "grpc", "google", "prometheus_client", "cryptography"))
+assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
+                             "cryptography")) for m in loaded), loaded
+assert "kubebrain_tpu_torch.client" not in sys.modules
+assert not any(m == "jax" or m.startswith(("jax.", "kubebrain_tpu."))
+               for m in sys.modules)
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s phases rehearsed on the CPU at a small size (phase
-(g2) needs ``kbstored``: ``make -C native``).
+(g2) runs ``kbstored``, which the ``kbstored`` fixture builds on first
+use).
 
 CPU tensors take the kernels' plain versions and launch nothing, so the
 rehearsal counts a launch where a wrapper calls its plain version, on the
@@ -43,6 +44,10 @@ from kubebrain_tpu_torch.ops import keys as keyops  # noqa: E402
 from kubebrain_tpu_torch.ops import launch_owner  # noqa: E402
 from kubebrain_tpu_torch.ops import scan as tscan  # noqa: E402
 from kubebrain_tpu_torch.storage.native import NativeKv  # noqa: E402
+from kubebrain_tpu_torch.workload import WorkloadSpec  # noqa: E402
+from kubebrain_tpu_torch.workload.spec import SLOBounds  # noqa: E402
+
+from kbstored_build import kbstored  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 
@@ -360,8 +365,8 @@ def test_watch_drive_catches_a_churned_watchers_extra_event(shims,
         store.close()
 
 
-needs_kbstored = pytest.mark.skipif(
-    not chip_smoke.KBSTORED.exists(), reason="kbstored not built (make -C native)")
+#: (g2) runs a kbstored: built on first use (``kbstored_build``)
+needs_kbstored = pytest.mark.usefixtures("kbstored")
 
 
 def small_args(**kw):
@@ -770,6 +775,196 @@ def test_side_phases_failure_fails_the_run(monkeypatch):
     side = chip_smoke.SidePhases(small_args())
     side.close()
     assert side.proc.returncode is not None
+
+
+def replay_spec(**kw):
+    """(k) at a rehearsal's size: ``for_smoke`` at 100 nodes (100
+    controllers over 33 namespaces: enough segments for a broad cohort to
+    make the hub's index dense, so that (k2)'s blocks reach K4), held to
+    ``for_cluster``'s batching bound unless ``bounds`` is given."""
+    kw.setdefault("bounds", SLOBounds(min_batched_requests=2))
+    return WorkloadSpec.for_smoke(100, seed=0, **kw)
+
+
+def replay_args(**kw):
+    return types.SimpleNamespace(**{"seed": 0, **kw})
+
+
+@pytest.fixture
+def replay_flags(monkeypatch):
+    """``CLI_FLAGS`` with the merge threshold cut to the rehearsal's
+    writes: at the engine's 4,096 rows a merge, a smoke replay's first
+    merge would be its first compaction's, which then takes in the
+    node-lease directory and rebuilds the mirror's key dictionary (the
+    full-size replay merges, and rebuilds, long before its first
+    compaction)."""
+    monkeypatch.setattr(chip_smoke, "CLI_FLAGS",
+                        chip_smoke.CLI_FLAGS + ("--merge-threshold", "64"))
+
+
+def test_replay_phase(shims, replay_flags):
+    """Phase (k) through the shims, both replays: the schedule's sha256
+    re-checked, every acknowledged pod write read back, the history
+    linearizable, every watch equal to ``match_oracle``, the compactions
+    without a rebuild, the report's correctness bounds met, K1-K3
+    launched under (k)'s owner in (k1) and K1-K4 in (k2), which adds the
+    broad cohort; the RPC-count reconcile named as not applicable."""
+    spec = replay_spec()
+    out = chip_smoke.replay_phase(replay_args(), CPU, spec)
+    runs = (out["cluster"], out["broad"])
+    assert out["cluster"]["watch"]["broad"] == 0
+    assert out["broad"]["watch"]["broad"] == chip_smoke.replay_broad(spec)
+    assert out["broad"]["owner_launches"]["fanout_dispatch"] > 0
+    for run in runs:
+        assert run["spec"]["sha256"] == chip_smoke.generator.generate(
+            spec).sha256()
+        for name in chip_smoke.REPLAY_KERNELS:
+            assert run["owner_launches"][name] > 0, name
+        assert run["consistency"]["ok"] and \
+            run["consistency"]["acked_live"] > 0
+        lin = run["lincheck"]
+        assert lin["ok"] and lin["ops"] > run["consistency"]["checked_keys"]
+        assert run["watch"]["delivered"] > 0
+        assert run["rebuilds"]["in_compactions"] == [0, 0]
+        rec = run["reconcile"]
+        assert rec["ok"] and set(rec["checks"]) == {"lease_keepalives",
+                                                    "watchers"}
+        assert set(rec["not_applicable"]) == {"txn_rpcs", "range_rpcs",
+                                              "compact_rpcs",
+                                              "lease_grant_rpcs"}
+        assert run["summary"]["query_batches"] > 0
+        assert run["summary"]["lanes"]["write"]["count"] > 0
+    assert out["owner_launches"] == {
+        name: sum(run["owner_launches"].get(name, 0) for run in runs)
+        for name in out["owner_launches"]}
+
+
+def test_replay_broad_is_the_fewest_that_make_the_index_dense():
+    """At ``for_cluster(1000)`` (k2)'s cohort is 60 whole-pods watchers:
+    the hub's index over the 1,000 namespace watches and 60 broad ones is
+    dense, and over 59 it is not."""
+    spec = WorkloadSpec.for_cluster(chip_smoke.REPLAY_NODES)
+    assert chip_smoke.replay_broad(spec) == 60
+
+    def index(broad):
+        filters = {}
+        for w in range(spec.nodes):
+            prefix = b"/registry/pods/" + chip_smoke.generator.ns_name(
+                w % spec.namespaces) + b"/"
+            filters[w] = (prefix, chip_smoke.coder.prefix_end(prefix), 0)
+        for b in range(broad):
+            filters[spec.nodes + b] = (b"/registry/pods/", b"/registry/pods0",
+                                       0)
+        return chip_smoke._RangeIndex(filters)
+
+    assert index(60).dense and not index(59).dense
+
+
+def test_replay_phase_needs_the_broad_cohort_for_k4(shims, replay_flags,
+                                                    monkeypatch):
+    """Without broad watchers the hub serves every block of the workload's
+    informers from its index: (k2) then fails on K4's zero count."""
+    monkeypatch.setattr(chip_smoke, "replay_broad", lambda spec: 0)
+    with pytest.raises(AssertionError,
+                       match=r"\(k2\) never launched \['fanout_dispatch'\]"):
+        chip_smoke.replay_phase(replay_args(), CPU, replay_spec())
+
+
+def test_replay_phase_catches_a_lost_acknowledged_write(shims, replay_flags,
+                                                        monkeypatch):
+    """A pod create acknowledged and then lost from the store fails (k)."""
+    orig = chip_smoke.InProcessClient.create
+    lost = []
+
+    def losing(self, key, value, lease=0):
+        ok, rev = orig(self, key, value, lease)
+        if ok and not lost and key.startswith(b"/registry/pods/"):
+            lost.append(key)
+            self.t.backend.delete(key)  # behind the acknowledgement
+        return ok, rev
+
+    monkeypatch.setattr(chip_smoke.InProcessClient, "create", losing)
+    with pytest.raises(AssertionError, match="acknowledged-write check"):
+        chip_smoke.replay_phase(replay_args(), CPU, replay_spec())
+    assert lost
+
+
+def test_replay_phase_catches_a_dropped_watch_event(shims, replay_flags,
+                                                    monkeypatch):
+    """One event kept from one namespace watcher fails (k)."""
+    orig = chip_smoke.NotifyingQueue._put
+    dropped = []
+
+    def lossy(self, item):
+        w = getattr(self, "watch", None)
+        if not dropped and w is not None and not w.broad \
+                and isinstance(item, list) and item:
+            dropped.append(item[0].revision)
+            item = item[1:]
+            if not item:
+                return
+        orig(self, item)
+
+    monkeypatch.setattr(chip_smoke.NotifyingQueue, "_put", lossy)
+    with pytest.raises(AssertionError, match="the oracle"):
+        chip_smoke.replay_phase(replay_args(), CPU, replay_spec())
+    assert dropped
+
+
+def test_replay_phase_fails_when_k2_never_launches(shims, replay_flags,
+                                                   monkeypatch):
+    """With the scheduler's batching off no query batch reaches K2, and (k)
+    fails on K2's zero count (the batching bound lifted, so that it is the
+    launch check that fails)."""
+    monkeypatch.setattr(chip_smoke, "CLI_FLAGS",
+                        chip_smoke.CLI_FLAGS + ("--sched-batch", "1"))
+    with pytest.raises(AssertionError, match=r"never launched \['scan_mask_q'\]"):
+        chip_smoke.replay_phase(replay_args(), CPU,
+                                replay_spec(bounds=SLOBounds()))
+
+
+def test_replay_phase_catches_a_lincheck_violation(shims, replay_flags,
+                                                   monkeypatch):
+    """A point read that returns a value no write wrote fails (k)."""
+    orig = chip_smoke.ReplayHistory.record
+    bad = []
+
+    def stale(self, kind, key, call, ret, **kw):
+        if kind == "get" and kw.get("ok") and not bad:
+            bad.append(key)
+            kw["value"] = b"a value no write wrote"
+        orig(self, kind, key, call, ret, **kw)
+
+    monkeypatch.setattr(chip_smoke.ReplayHistory, "record", stale)
+    with pytest.raises(AssertionError, match="not linearizable"):
+        chip_smoke.replay_phase(replay_args(), CPU, replay_spec())
+    assert bad
+
+
+def test_prom_text_is_what_the_report_reads():
+    """The sink rendered as the Prometheus exposition: counters with
+    ``_total``, histograms as cumulative buckets with count and sum,
+    gauges sampled, a gone gauge skipped."""
+    sink = chip_smoke.RecordingMetrics()
+    sink.emit_counter("kb.watch.dropped", 2)
+    sink.emit_counter("kb.lease.granted.total", 3)
+    for v in (0.002, 0.02, 20.0):
+        sink.emit_histogram("kb.watch.lag.seconds", v, point="queue")
+    sink.register_gauge_fn("kb.watch.backlog", lambda: 4, watcher="7")
+
+    def gone():
+        raise LookupError
+
+    sink.register_gauge_fn("kb.watch.backlog", gone, watcher="8")
+    snap = chip_smoke.slo.parse_prom(chip_smoke.prom_text(sink))
+    slo = chip_smoke.slo
+    assert slo.series_sum(snap, "kb_watch_dropped_total") == 2
+    assert slo.series_sum(snap, "kb_lease_granted_total") == 3
+    assert slo.hist_count_sum(snap, "kb_watch_lag_seconds",
+                              point="queue") == (3, 20.022)
+    assert slo.hist_quantile(snap, "kb_watch_lag_seconds", 0.99,
+                             point="queue") == 10.0
+    assert slo.series_count(snap, "kb_watch_backlog") == 1
 
 
 def test_routing_crossover_rows(shims):

@@ -8,12 +8,11 @@ Counterparts of the 11 engine-level tests of ``tests/test_kvrpc.py`` (the
 ``test_pool_heals_after_server_restart`` and
 ``test_reverse_scan_pages_past_server_page_cap``), plus ``cuda`` over
 remote against the JAX ``tpu`` over remote. The replication and CLI tests
-wait for the port's front and ``replica/``. Skipped, like
-``tests/test_kvrpc.py``, when ``kbstored`` is not built
-(``make -C native``).
+wait for the port's front and ``replica/``. ``kbstored`` is built on
+first use (``kbstored_build.kbstored``); only a machine without ``make`` or
+a C++ compiler skips.
 """
 
-import os
 import socket
 import subprocess
 import time
@@ -29,12 +28,9 @@ import kubebrain_tpu_torch.storage as tstorage
 import kubebrain_tpu_torch.storage.errors as terrors
 from kubebrain_tpu_torch.storage.remote import RemoteKvStorage
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STORED_BIN = os.path.join(REPO, "native", "kvrpc", "kbstored")
+from kbstored_build import STORED_BIN, kbstored  # noqa: F401
 
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(STORED_BIN), reason="kbstored not built (make -C native)"
-)
+pytestmark = pytest.mark.usefixtures("kbstored")
 
 JAX = types.SimpleNamespace(name="jax", backend=jbackend, errors=jerrors,
                             new_storage=jstorage.new_storage, mirror="tpu")

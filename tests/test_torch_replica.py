@@ -1,8 +1,8 @@
 """The port's follower role (``kubebrain_tpu_torch/replica``) through the
 port's CLI and gRPC front on the CPU (``--device cpu``), driven by the
-port's client: counterparts of the ten cases of ``tests/test_replica.py``
-that need no workload harness (``test_two_replica_end_to_end_smoke`` waits
-for ``workload/``), with the ``tpu`` mirror-identity case over the ``cuda``
+port's client: counterparts of the eleven cases of ``tests/test_replica.py``
+(``test_two_replica_end_to_end_smoke`` through the port's workload
+runner), with the ``tpu`` mirror-identity case over the ``cuda``
 engine (raw and encoded mirror keys), and a cross-package differential: a
 JAX pair and a port pair run one seeded write script, and their followers'
 Range and Count answers at the same pinned revisions must be equal.
@@ -724,3 +724,30 @@ def test_a_failed_head_sample_pauses_the_samples(monkeypatch):
     clock[0] = 10.2
     role.sample_leader_head()
     assert role._heads[-1] == (10.2, 9)
+
+
+def test_two_replica_end_to_end_smoke():
+    """A spawned leader and two followers of the port's CLI on the CPU,
+    through the port's workload harness: the gRPC front, follower-routed
+    list+watch, fence probes, the schema'd replica report section, and
+    every reconcile check green."""
+    from kubebrain_tpu_torch.workload.runner import run_workload
+    from kubebrain_tpu_torch.workload.spec import WorkloadSpec
+
+    spec = WorkloadSpec.for_smoke(8, replicas=2)
+    report = run_workload(spec, write_report=False, device="cpu")
+    assert report["slo"]["pass"], report["slo"]["violations"]
+    rep = report["replica"]
+    assert rep["replicas"] == 2 and len(rep["per_replica"]) == 2
+    for pr in rep["per_replica"]:
+        assert pr["revision_bound_ok"]
+        assert pr["applied_revision"] > 0
+        assert pr["served"].get("range", 0) > 0
+        assert pr["max_client_revision"] <= pr["applied_revision"]
+    assert rep["fence_probes"]["violations"] == 0
+    assert rep["reconcile"]["ok"]
+    assert report["replay"]["rows_per_sec"] > 0
+    # writes round-robin over all three endpoints, so some land on
+    # followers and are forwarded
+    assert sum(pr["forwarded"].get("txn", 0)
+               for pr in rep["per_replica"]) > 0
