@@ -49,6 +49,29 @@ result line):
     merge may have failed and no read
     may have left the device (the engine's error, retry, escalation,
     degraded-seconds and background-rebuild counters all stay 0).
+(l) the device mesh, right after (c) in its process: two slots, on two
+    cards where the machine has them, else two slots of ``cuda:0`` (which
+    run back to back on its stream: no speed is read from them). (l1) a
+    second ``CudaKvStorage`` with 4 partitions over the two slots on (c)'s
+    host store (1M keys, a 2.0M-row mirror): (c)'s request batch in one
+    ``scan_batch`` (K2 once per slot), each query alone (K1 once per slot;
+    the bytes it pulls at most the counts plus P·pow2(its largest
+    partition's rows)·8) and (c)'s edge queries as Counts, every answer
+    equal to (c)'s scanner's; K1/K2 held against the plain version on
+    every shard with the edge queries. (l2) a seeded store of
+    ``MESH_KEYS`` (100,000) kube keys on one slot and over the two, then
+    ``MESH_OPS`` (2,000) creates, updates, deletes and recreates on both,
+    a Range and a Count every tenth op equal, the sharded overlay live; a
+    forced merge re-uploads only the slots holding a dirty partition (and
+    keeps one), and so does a write to the other slot. (l3) (f)'s
+    population of ``--watchers`` (1% broad) on a ``DeviceFanout`` over the
+    two slots and a one-slot one, a 15-event block and (i)'s 10,000 × 512:
+    the same pairs in the same order, equal to ``match_oracle`` on 256
+    watchers; the legacy matcher (K5) likewise. (l4) J6 (``parallel/
+    step.py``) over a (2, 2) mesh on (l2)'s mirror and (l3)'s table, equal
+    to the wrappers on the gathered columns. Then (l2)'s stores compact at
+    one revision: equal stores and victims, K3 once per slot. Every kernel
+    must launch under (l)'s owner.
 (e) compaction on the main path, same store: a few hundred writes left in
     the delta, the same aged ``CompactHistory`` entry on both sides (so
     ``/events/`` rows expire by TTL), then ``Backend.compact``. The store
@@ -234,7 +257,8 @@ three compares per pair and the rank searches) and the full-scan bound of
 every valid row (for K4/K5 the compare bound, 2C + 1 compares per pair).
 
 Output, last three lines: the kernels JSON (with each kernel's launches on
-the follower of (j) and in the replay of (k) beside the total), the ``nvidia-smi`` name and power
+the follower of (j), in the replay of (k) and on the mesh of (l) beside
+the total), the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
 ``--watch-ab DIR`` runs only the watch drive on an empty store, through
@@ -287,7 +311,7 @@ from kubebrain_tpu_torch.backend.watcherhub import (
     WatcherHub,
     _RangeIndex,
 )
-from kubebrain_tpu_torch.device import TRANSFER_METER, resolve_device
+from kubebrain_tpu_torch.device import TRANSFER_METER, _pow2_bucket, resolve_device
 from kubebrain_tpu_torch.faults import FaultPlane, FaultyStorage, generate
 from kubebrain_tpu_torch.fanout import DeviceFanout, match_oracle
 from kubebrain_tpu_torch.fanout.dispatch import max_block_events
@@ -299,6 +323,8 @@ from kubebrain_tpu_torch.ops import scan, scan_kernels
 from kubebrain_tpu_torch.ops import keys as keyops
 from kubebrain_tpu_torch.ops import launch_owner
 from kubebrain_tpu_torch.ops.scan import flip_sign
+from kubebrain_tpu_torch.parallel.mesh import Mesh
+from kubebrain_tpu_torch.parallel.step import make_data_plane_step
 from kubebrain_tpu_torch.replica import (
     ReplicaApplier,
     ReplicaRefusedError,
@@ -321,11 +347,16 @@ from kubebrain_tpu_torch.trace import STAGE_METRIC, TRACER
 from kubebrain_tpu_torch.workload import WorkloadSpec, generator, slo
 from kubebrain_tpu_torch.workload.runner import WorkloadRunner
 from kubebrain_tpu_torch.storage.cuda.engine import (
+    CudaKvStorage,
     _part_indices_of_mask,
     bound_rows,
     query_tensors,
 )
 
+#: the card of every store this script builds itself: the engine's default
+#: (one slot per visible card) is driven through the CLI in (i)-(k), and a
+#: mesh of two cards only in (l)
+CARD = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 VECTOR_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate
 SOURCES = {
@@ -1159,9 +1190,9 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
 
         # both kernels against the plain version at the mirror's own shape
         cases = {}
-        cols = (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-                mirror.n_valid_dev)
-        p, c, n = mirror.keys_dev.shape
+        (sh,) = mirror.shards  # (c)'s store is on one card (CARD)
+        cols = (sh.keys, sh.revs, sh.tomb, sh.n_valid)
+        p, c, n = sh.keys.shape
         for name, specs in (
                 ("scan_mask", [(*NS, head)]),
                 ("scan_mask_q", [(q[1], q[2], q[3] or head) for q in batch])):
@@ -1190,8 +1221,7 @@ def serve_phase(backend, store, top: int, dev) -> tuple[dict, dict]:
             f"straddling {edges['blocks']}")
         # J1 (mask -> index block) beside its one-call yardstick
         mask, counts = scan_case(
-            "scan_mask", mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-            mirror.n_valid_dev, *query_tensors(
+            "scan_mask", *cols, *query_tensors(
                 mirror.encoding, mirror.key_width, [(*PODS, head)],
                 dev)).kernel()
         size = 1
@@ -1371,7 +1401,7 @@ def compact_phase(backend, store, top: int, n_keys: int, dev,
             "equals the host scanner")
 
         # K3 against the plain version on the main path's own inputs
-        args = scanner._victim_args(*marked[0])
+        args = scanner._victim_args(*marked[0])[0]  # one slot
         m = victim_checks(args, measure_reps=measure_reps)
         p, c, n = args[0].shape
         if measure_reps:
@@ -1389,6 +1419,399 @@ def compact_phase(backend, store, top: int, n_keys: int, dev,
         oracle.close()
         twin_backend.close()
         twin.close()
+
+
+# ------------------------------------------------------------------ phase l
+#: the launches of (l)'s sharded engines, matchers and J6 are counted under
+#: this owner (``ops/launch_owner.py``)
+MESH_OWNER = "mesh"
+#: (l)'s mirror partitions: two per slot
+MESH_PARTITIONS = 4
+#: (l2): kube keys of the store built on one slot and over two (the size
+#: of (h)), and the writes on both sides
+MESH_KEYS = 100_000
+MESH_OPS = 2_000
+
+
+def mesh_slots(dev) -> tuple[list, str]:
+    """(l)'s two slots: two cards where the machine has them, else two
+    slots of one device (run back to back on its stream)."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)], "two cards"
+    one = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    return [one, one], f"two slots of one device ({one})"
+
+
+def same_answer(got, want, what: str) -> None:
+    """A scan answer, ``(kvs, more)`` or a count, equal to ``want``."""
+    for x in (got, want):
+        if isinstance(x, BaseException):
+            raise x
+    if isinstance(want, int):
+        if got != want:
+            raise AssertionError(f"{what}: count {got} against {want}")
+        return
+    same_kvs(got[0], want[0], what)
+    if got[1] != want[1]:
+        raise AssertionError(f"{what}: more {got[1]} against {want[1]}")
+
+
+def partition_counts(mirror, kvs) -> list[int]:
+    """The rows of sorted ``kvs`` in each partition of ``mirror``."""
+    keys = [kv.key for kv in kvs]
+    cuts = [0] + [bisect.bisect_left(keys, fk)
+                  for fk in mirror.partition_first_keys()[1:]] + [len(keys)]
+    return [b - a for a, b in zip(cuts, cuts[1:])]
+
+
+def pull_bound(mirror, kvs) -> int:
+    """(l1)'s transfer bound of one Range over ``mirror``: the counts, 4
+    bytes a partition, and P·pow2(its largest partition's rows)·8."""
+    p, n = mirror.partitions, mirror.keys_host.shape[1]
+    return 4 * p + p * _pow2_bucket(max(partition_counts(mirror, kvs)), n) * 8
+
+
+def mesh_reads(backend, store, top: int, slots) -> dict:
+    """(l1): a second ``CudaKvStorage`` with ``MESH_PARTITIONS`` partitions
+    over the two slots, on (c)'s host store; (c)'s request batch in one
+    ``scan_batch`` (K2 once per slot), each of its queries alone (K1 once
+    per slot, the pulled bytes held to :func:`pull_bound`) and the edge
+    queries as Counts, every answer equal to (c)'s scanner's at the same
+    revision; K1 and K2 held against the plain version on each shard with
+    the edge queries. The scanner is closed after, and the host store
+    stays (c)'s."""
+    ref = backend.scanner
+    t0 = time.perf_counter()
+    sharded = CudaKvStorage(store.untracked(), mesh=slots,
+                            partitions=MESH_PARTITIONS)
+    sc = sharded.make_scanner(get_compact_revision=lambda _s: 0)
+    sc.launch_owner = MESH_OWNER
+    try:
+        sc.publish()
+        built = time.perf_counter() - t0
+        m = sc._mirror
+        if len(m.shards) != len(slots) or m.partitions != MESH_PARTITIONS:
+            raise AssertionError(f"(l1): {len(m.shards)} shards, "
+                                 f"{m.partitions} partitions")
+        log(f"(l1) sharded mirror over {len(slots)} slots, P="
+            f"{m.partitions}, N={m.keys_host.shape[1]}, {m.rows} rows "
+            f"(partitions {m.n_valid.tolist()}), published in {built:.1f} s")
+        head = backend.current_revision()
+        queries = [("range", q[1], q[2], q[3] or head, q[4]) if q[0] == "list"
+                   else ("count", q[1], q[2], q[3] or head)
+                   for q in request_batch(top)]
+        # rows/s: the rows the sharded engine's Ranges returned over the
+        # seconds of its batch and its Ranges alone (Counts not timed)
+        t0 = time.perf_counter()
+        got = sc.scan_batch(queries)
+        served = time.perf_counter() - t0
+        want = ref.scan_batch(queries)
+        rows = 0
+        for q, g, w in zip(queries, got, want):
+            same_answer(g, w, f"(l1) batched {q[0]} {q[1]!r}")
+            rows += 0 if q[0] == "count" else len(g[0])
+        worst = 0.0
+        for q, w in zip(queries, want):
+            b0 = TRANSFER_METER.snapshot()[0]
+            t1 = time.perf_counter()
+            g = (sc.count(*q[1:4]) if q[0] == "count"
+                 else sc.range_(*q[1:5]))
+            if q[0] == "range":
+                served += time.perf_counter() - t1
+            cost = TRANSFER_METER.snapshot()[0] - b0
+            same_answer(g, w, f"(l1) {q[0]} {q[1]!r}")
+            bound = (4 * m.partitions if q[0] == "count"
+                     else pull_bound(m, w[0]))
+            if cost > bound:
+                raise AssertionError(f"(l1) {q[0]} {q[1]!r}: pulled {cost} "
+                                     f"bytes, bound {bound}")
+            if q[0] == "range":
+                worst = max(worst, cost / bound)
+                rows += len(g[0])
+        n_edges = 0
+        for p in (0, m.partitions - 1):
+            nv = int(m.n_valid[p])
+            mid = nv // 2 // scan.BLOCK_OWNED * scan.BLOCK_OWNED
+            at = sorted({r for r in (254, 255, 256, 510, mid + 254, mid + 255,
+                                     mid + 256) if 0 < r < nv})
+            specs = edge_specs(lambda r, p=p: m.user_key(p, r), at, nv, head)
+            for s, e, r in specs:
+                same_answer(sc.count(s, e, r), ref.count(s, e, r),
+                            f"(l1) edge count {s!r}..{e!r}")
+            for sh in m.shards:
+                cols = (sh.keys, sh.revs, sh.tomb, sh.n_valid)
+                check_edges(cols, m.encoding, m.key_width, specs, sh.device)
+            n_edges += len(specs)
+        log(f"(l1) every answer equals (c)'s: {len(queries)} queries batched "
+            f"and alone, {n_edges} edge Counts; K1/K2 on every shard "
+            f"bit-identical to the plain version on the edge queries; a "
+            f"Range pulled at most {worst:.3f} of its bound")
+        stayed_on_device(sc, 1, "(l1)")
+        return {"serve_s": served, "rows": rows, "rows_per_s": rows / served}
+    finally:
+        sc.close()
+
+
+def mesh_store(slots, seed: int, n_keys: int, n_ops: int) -> tuple:
+    """(l2), first half: a seeded store of ``n_keys`` kube keys built
+    twice, on one slot and over the two slots, then ``n_ops`` seeded
+    creates, updates, deletes and recreates of pods in the last namespaces
+    on both, a Range and a Count every tenth op equal on both; the sharded
+    side keeps its overlay live (the one-slot side merges as it goes).
+    Then the sharded side merges: a slot is re-uploaded only if it holds a
+    dirty partition, and at least one is kept; one more write, to the first
+    partition, re-uploads the other slot alone. Returns the two Backends
+    and the publish counts."""
+    rows, top = kube_dataset(n_keys, seed)
+    stores = [new_storage("cuda", inner="memkv", device=slots[0],
+                          ttl_supported=False),
+              new_storage("cuda", inner="memkv", mesh=slots,
+                          partitions=MESH_PARTITIONS, ttl_supported=False)]
+    for st in stores:
+        load_rows(st.untracked(), rows, top)
+    plain, sharded = (Backend(st, BackendConfig()) for st in stores)
+    sharded.scanner.launch_owner = MESH_OWNER
+    sharded.scanner._merge_threshold = 10 ** 9  # the overlay stays live
+    plain.scanner._merge_threshold = 256
+    for b in (plain, sharded):
+        b.scanner.publish()
+    rng = random.Random(seed)
+    live: dict[bytes, int] = {}
+    reads = 0
+    for i in range(n_ops):
+        ns = rng.randrange(28, 32)
+        k = b"/registry/pods/ns%02d/mesh-%04d" % (ns, rng.randrange(500))
+        op = rng.random()
+        action = ("create" if k not in live else "recreate" if op < 0.3
+                  else "update" if op < 0.8 else "delete")
+        revs = set()
+        for b in (plain, sharded):
+            if action == "create":
+                r = b.create(k, b"c%d" % i)
+            elif action == "recreate":
+                b.delete(k)
+                r = b.create(k, b"r%d" % i)
+            elif action == "update":
+                r = b.update(k, b"u%d" % i, live[k])
+            else:
+                r, _ = b.delete(k)
+            revs.add(r)
+        if len(revs) != 1:
+            raise AssertionError(f"(l2) op {i}: revisions {revs}")
+        if action == "delete":
+            live.pop(k)
+        else:
+            live[k] = r
+        if i % 10 == 9:
+            span = (b"/registry/pods/ns%02d/" % ns, b"/registry/pods/ns%02d0" % ns)
+            same_kvs(sharded.list_(*span).kvs, plain.list_(*span).kvs,
+                     f"(l2) range after op {i}")
+            if sharded.count(*span)[0] != plain.count(*span)[0]:
+                raise AssertionError(f"(l2) count after op {i}")
+            reads += 2
+    sc = sharded.scanner
+    if not len(sc._delta):
+        raise AssertionError("(l2) the sharded overlay is not live")
+    uploads = []
+    for write in (None, b"/events/ns00/ev-mesh"):
+        if write is not None:
+            sharded.create(write, b"e")
+            plain.create(write, b"e")
+        before = sc._mirror
+        firsts = before.partition_first_keys()
+        dirty = {max(bisect.bisect_right(firsts, uk) - 1, 0)
+                 for uk, _r, _v in sc._delta.rows()}
+        per_slot = before.partitions // len(before.shards)
+        sc.publish()
+        after = sc._mirror
+        kept = [i for i, (a, b) in enumerate(zip(before.shards, after.shards))
+                if a is b]
+        want = [i for i in range(len(after.shards))
+                if not dirty & set(range(i * per_slot, (i + 1) * per_slot))]
+        if kept != want or not kept:
+            raise AssertionError(f"(l2) slots kept {kept}, dirty partitions "
+                                 f"{sorted(dirty)}: want {want} kept")
+        uploads.append(len(after.shards) - len(kept))
+    log(f"(l2) {n_keys} keys, {n_ops} ops, {reads} reads equal on one "
+        f"slot and over two with the overlay live; slots re-uploaded per "
+        f"publish {uploads} of {len(slots)} (only the dirty ones)")
+    return plain, sharded, uploads
+
+
+def mesh_compaction(plain, sharded, what: str = "(l2)"
+                    ) -> collections.Counter:
+    """(l2), second half: both compact at one revision; the stores must be
+    equal, the victims too, the sharded mirror stay on its incremental
+    path, and K3 run once per slot of each border pair's pass. ``what``
+    names the check in its messages. Returns the launches counted under
+    ``MESH_OWNER`` meanwhile."""
+    rev = plain.current_revision()
+    owned = launch_owner.take(MESH_OWNER)
+    done_s, seen_s, wall_s = compact_recording(sharded, rev)
+    during = launch_owner.take(MESH_OWNER)
+    k3 = during.get("victim_mask", 0)
+    done_p, seen_p, wall_p = compact_recording(plain, rev)
+    slots = len(sharded.scanner._mirror.shards)
+    if done_s != rev or done_p != rev:
+        raise AssertionError(f"{what} compacted to {done_s}/{done_p}, not "
+                             f"{rev}")
+    if victim_totals(seen_s) != victim_totals(seen_p):
+        raise AssertionError(f"{what} victims {victim_totals(seen_s)} against "
+                             f"{victim_totals(seen_p)}")
+    if {s.mirror_path for s in seen_s} != {"stored_incremental"}:
+        raise AssertionError(f"{what} sharded mirror path not "
+                             f"stored_incremental")
+    if k3 != slots * len(seen_s):
+        raise AssertionError(f"{what} K3 launched {k3} times for {len(seen_s)} "
+                             f"passes over {slots} slots")
+    n = same_store(plain.store.untracked(), sharded.store.untracked())
+    for span in ((b"/registry/pods/", b"/registry/pods0"),
+                 (b"/events/", b"/events0")):
+        same_kvs(sharded.list_(*span).kvs, plain.list_(*span).kvs,
+                 f"{what} post-compact range {span[0]!r}")
+    log(f"{what} compaction at {rev}: stores equal ({n} rows), victims "
+        f"{victim_totals(seen_s)} on both, K3 {k3} launches ({slots} slots x "
+        f"{len(seen_s)} passes); sharded {wall_s:.2f} s, one slot "
+        f"{wall_p:.2f} s")
+    owned = collections.Counter(owned)
+    owned.update(during)
+    return owned
+
+
+def mesh_fanout(slots, seed: int, n_watchers: int, n_events: int) -> tuple:
+    """(l3): (f)'s population of ``n_watchers`` (1% broad) on a
+    ``DeviceFanout`` over the two slots and on a one-slot one, over a block
+    of the main path's size (15 events) and case (i) (``n_events``): the
+    pairs equal element for element and equal to ``match_oracle`` on a
+    seeded sample of watchers; then the legacy matcher (K5) over the two
+    slots against its one-slot self and the oracle. Returns the sharded
+    matcher and (i)'s block."""
+    rng = np.random.RandomState(seed)
+    specs = fanout_population(n_watchers, n_watchers // 100, rng)
+    plain = DeviceFanout(device=slots[0])
+    sharded = DeviceFanout(mesh=slots)
+    sharded.launch_owner = MESH_OWNER
+    pairs = 0
+    blocks = [("main-path block", fanout_events(15, 1000, rng)),
+              ("(i)", fanout_events(n_events, 2000, rng))]
+    sample = [specs[i] for i in rng.choice(
+        len(specs), min(ORACLE_WATCHERS, len(specs)), replace=False)]
+    keep = {wid for wid, *_r in sample}
+    for what, events in blocks:
+        want = plain._match(events, specs, 1)
+        got = sharded._match(events, specs, 1)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"(l3) {what}: the sharded pairs differ from "
+                                 f"the one-slot table's")
+        mine = {(int(got[2][s]), int(e)) for s, e in zip(*got[:2])
+                if int(got[2][s]) in keep}
+        if mine != oracle_pairs(events, sample):
+            raise AssertionError(f"(l3) {what}: pairs differ from "
+                                 f"match_oracle")
+        pairs += len(got[0])
+    legacy = [fanout.FanoutMatcher(device=slots[0]),
+              fanout.FanoutMatcher(mesh=slots)]
+    legacy[1].launch_owner = MESH_OWNER
+    events = blocks[0][1]
+    masks = [m(events, specs, version=1) for m in legacy]
+    col_of = {wid: j for j, (wid, *_r) in enumerate(specs)}
+    cols = [col_of[wid] for wid, *_r in sample]
+    if not (masks[0] == masks[1]).all() or not (
+            masks[1][:, cols] == match_oracle(events, sample)).all():
+        raise AssertionError("(l3) the legacy matcher over two slots differs")
+    st = sharded.table.stats()
+    log(f"(l3) {n_watchers} watchers (table {st['capacity']} slots over "
+        f"{st['devices']}, sharded={st['sharded']}): {pairs} pairs over "
+        f"{len(blocks)} blocks equal to the one-slot table's, in order, and "
+        f"to match_oracle on {len(sample)} watchers; the legacy matcher's "
+        f"masks too")
+    return sharded, blocks[1][1]
+
+
+def mesh_step(mirror, matcher, events, slots) -> None:
+    """(l4): J6 (``parallel/step.py``) on (l2)'s sharded mirror columns and
+    (l3)'s sharded watcher table, a ``/registry/pods/`` scan at the head,
+    the victims at half the head, the fan-out mask of (i)'s block; equal to
+    the wrappers' results on the same columns gathered onto one slot."""
+    s0, s1 = slots
+    mesh = Mesh(np.array([[s0, s1], [s1, s0]], dtype=object), ("part", "wat"))
+    s_row, e_row, unb = bound_rows(mirror.encoding, mirror.key_width, *PODS)
+    start = torch.from_numpy(flip_sign(s_row))
+    end = torch.from_numpy(flip_sign(e_row))
+    head, half = mirror.max_rev, mirror.max_rev // 2
+    shards, _wids, _v = matcher.table.shard_views()
+    ek, er, _epad = matcher._pack_events(events)
+    cols = [[getattr(sh, c) for sh in mirror.shards]
+            for c in ("keys", "revs", "tomb", "ttl", "n_valid")]
+    table = [[sh[i] for sh in shards] for i in range(1, 5)]
+    with launch_owner.owned_by(MESH_OWNER):
+        vis, total, victims, fmask = make_data_plane_step(mesh)(
+            *cols, start, end, unb, head, half, 0, *table, ek, er,
+            len(events))
+    one = [torch.cat([t.to(s0) for t in ts]) for ts in cols]
+    whole = [torch.cat([t.to(s0) for t in ts]) for ts in table]
+    m1, c1 = scan_kernels.visibility_mask_batch(
+        *one[:3], one[4], start.to(s0), end.to(s0),
+        torch.tensor([int(unb)], dtype=torch.int32, device=s0),
+        torch.tensor([head], dtype=torch.int64, device=s0))
+    v1, _n = compact_kernels.victim_mask_batch(
+        *one, start.to(s0), end.to(s0), unb, half, 0)
+    f1 = fanout_kernels.fanout_mask_range(ek.to(s0), er.to(s0), len(events),
+                                          *whole)
+    if not (torch.equal(vis, m1) and total == int(c1.sum())
+            and torch.equal(victims, v1) and torch.equal(fmask, f1)):
+        raise AssertionError("(l4) J6 differs from the one-slot wrappers")
+    log(f"(l4) J6 over a (2, 2) mesh: {total} visible rows, "
+        f"{int(victims.sum())} victims, {int(fmask.sum())} fan-out matches, "
+        f"equal to the wrappers on the gathered columns")
+
+
+def mesh_phase(backend, store, top: int, args, dev, n_keys: int = MESH_KEYS,
+               n_ops: int = MESH_OPS) -> dict:
+    """(l): the device mesh on the card. The launches of its sharded
+    engines, matchers and J6 are counted under ``MESH_OWNER`` and each
+    kernel must launch there."""
+    slots, what = mesh_slots(dev)
+    log(f"(l) mesh: {what}, {MESH_PARTITIONS} partitions")
+    t_l = time.perf_counter()
+    launch_owner.take(MESH_OWNER)
+    seconds = {}
+    t0 = time.perf_counter()
+    reads = mesh_reads(backend, store, top, slots)
+    seconds["l1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain, sharded, uploads = mesh_store(slots, args.seed, n_keys, n_ops)
+    owned = collections.Counter()
+    try:
+        seconds["l2 writes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        matcher, block = mesh_fanout(slots, args.seed, args.watchers,
+                                     args.block_events)
+        seconds["l3"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_step(sharded.scanner._mirror, matcher, block, slots)
+        seconds["l4"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        owned.update(mesh_compaction(plain, sharded))
+        seconds["l2 compaction"] = time.perf_counter() - t0
+        stayed_on_device(sharded.scanner, 1, "(l2)")
+    finally:
+        for b in (plain, sharded):
+            b.close()
+            b.store.close()
+    owned.update(launch_owner.take(MESH_OWNER))
+    total = time.perf_counter() - t_l
+    launches = {name: owned.get(name, 0) for name in SOURCES}
+    log(f"(l) seconds: {json.dumps(seconds)}; {total:.1f} s in all")
+    log(f"(l) rows/s: {reads['rows_per_s']:.1f} ({reads['rows']} rows "
+        f"returned by (l1)'s Ranges in {reads['serve_s']:.3f} s, batched and "
+        f"alone, by the sharded engine)")
+    log(f"(l) publishes: slots re-uploaded {uploads}; launches under "
+        f"'{MESH_OWNER}' {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"(l): a kernel never launched on the mesh: "
+                             f"{launches}")
+    return {"launches": launches, "seconds": total, "what": what}
 
 
 # ------------------------------------------------------------------ phase f
@@ -1509,6 +1932,13 @@ def mask_case(ev, n_ev: int, cols, index) -> Case:
                 lambda: fanout.fanout_mask_rank_plain(*args, index=index))
 
 
+def one_slot_view(table) -> tuple:
+    """A one-slot table's published ``(starts, ends, unbounded, min_rev,
+    index, wids, version)``, from ``WatcherTable.shard_views``."""
+    (shard,), wids, version = table.shard_views()
+    return (*shard[1:], wids, version)
+
+
 def packed_block(specs, events, dev, width=None):
     """A matcher's table synced to ``specs`` and ``events`` packed at its
     width → (matcher, (keys, revs) on dev, the table's device columns,
@@ -1516,7 +1946,7 @@ def packed_block(specs, events, dev, width=None):
     m = DeviceFanout(width=width, device=dev)
     m.table.sync(specs, version=1)
     ek, er, _epad = m._pack_events(events)
-    ws, we, wu, wr, index, wids, _v = m.table.ranked_view()
+    ws, we, wu, wr, index, wids, _v = one_slot_view(m.table)
     return m, (ek, er), (ws, we, wu, wr), index, wids
 
 
@@ -1602,7 +2032,7 @@ def rank_index_ms(cols, index, reps: int) -> float:
 def check_index_rows(table, what: str) -> None:
     """The table's rank index names each slot's own bound rows, in rows
     that are sorted and distinct (raises otherwise)."""
-    ws, we, _wu, _wr, (rows, rs, re), _wids, _v = table.ranked_view()
+    ws, we, _wu, _wr, (rows, rs, re), _wids, _v = one_slot_view(table)
     ok = (torch.equal(rows[rs.long()], ws) and torch.equal(rows[re.long()], we)
           and bool(fanout._rows_less(rows[:-1], rows[1:]).all()))
     if not ok:
@@ -1618,7 +2048,7 @@ def index_churn(m, specs, reps: int, rng) -> tuple[dict, list]:
     of each kind: a watcher re-established on the same range (in the slot
     it left, so no index work), one replaced by a single-key watch of a new
     key (the rank kernel, one pull, two rows into the index), a ``min_rev``
-    change (no index work). Host ms of ``ranked_view()`` (to a
+    change (no index work). Host ms of ``shard_views()`` (to a
     device sync) and of the index update in it, median; the specs after."""
     table = m.table
     live = list(specs)
@@ -1643,7 +2073,7 @@ def index_churn(m, specs, reps: int, rng) -> tuple[dict, list]:
             before = table.stats()["index_s"]
             torch.cuda.synchronize()
             t = time.perf_counter()
-            table.ranked_view()
+            one_slot_view(table)
             torch.cuda.synchronize()
             pub.append(time.perf_counter() - t)
             idx.append(table.stats()["index_s"] - before)
@@ -1702,7 +2132,7 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
                                          ev[0].shape[0], seed),
                index_ms=rank_index_ms(cols, index, 20))
     res["churn"], churned = index_churn(m, specs, 20, rng)
-    ccols = m.table.ranked_view()
+    ccols = one_slot_view(m.table)
     ccase = dispatch_case(ev, n_e, ccols[:4], size, ccols[4])
     fanout_checks(ccase, 0)
     res["churn"]["oracle_pairs"] = check_oracle(
@@ -1720,12 +2150,12 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
     # (iv) K5 at EVENT_BATCH and at the full block, on the legacy matcher's
     # own table (W padded to a power of two, 128-byte keys)
     legacy = fanout.FanoutMatcher(device=dev)
-    lcols = legacy._watcher_table(specs, version=1)
+    (lcols, lindex), = legacy._watcher_table(specs, version=1)  # one slot
     lwids = np.full(lcols[0].shape[0], -1, np.int64)
     lwids[:len(specs)] = [wid for wid, *_r in specs]
     for n_ev in (300, n_e):
         lev = legacy_block(events[:n_ev], dev)
-        case = mask_case(lev, n_ev, lcols, legacy._index)
+        case = mask_case(lev, n_ev, lcols, lindex)
         res = fanout_checks(case, 20)
         lw, lc = lcols[0].shape
         res.update(shape=(lw, lev[0].shape[0], lc),
@@ -1734,7 +2164,7 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
         out[("fanout_mask_range", f"iv {n_ev}")] = res
         log(describe_fanout(f"fanout_mask_range [(iv) {n_w} watchers, "
                             f"W={lw}, E={lev[0].shape[0]}, n_ev={n_ev}, "
-                            f"C={lc}, n_u={legacy._index.rows.shape[0]}]",
+                            f"C={lc}, n_u={lindex.rows.shape[0]}]",
                             res))
     del m, ev, cols, index
 
@@ -1755,7 +2185,7 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
                                          ev[0].shape[0], seed),
                index_ms=rank_index_ms(cols, index, 10))
     res["churn"], _churned = index_churn(m, specs, 10, rng)
-    ccols = m.table.ranked_view()
+    ccols = one_slot_view(m.table)
     fanout_checks(dispatch_case(ev, big_e, ccols[:4], size, ccols[4]), 0)
     del ccols
     out[("fanout_dispatch", "ii")] = res
@@ -1777,7 +2207,7 @@ def fanout_kernel_phase(dev, n_w: int, n_e: int, big_w: int, big_e: int,
     kept = specs[700:]
     updates = m.table.stats()["index_updates"]
     m.table.sync(kept, version=2)   # frees 700 slots (dirty-row publish)
-    cols_kept = m.table.ranked_view()
+    cols_kept = one_slot_view(m.table)
     cols, index, wids = cols_kept[:4], cols_kept[4], cols_kept[5]
     if int((wids < 0).sum()) < 700:
         raise AssertionError("churn sync freed no slots")
@@ -2290,7 +2720,7 @@ def watch_phase(backend, dev, n_watchers: int, n_writes: int,
     # as the matcher packed it, against the table it matched
     block = res.pop("biggest")
     ev = matcher._pack_events(block)[:2]
-    view = matcher.table.ranked_view()
+    view = one_slot_view(matcher.table)
     cols, index = view[:4], view[4]
     w, c = cols[0].shape
     cases = {"fanout_dispatch": fanout_checks(
@@ -2311,9 +2741,9 @@ def watch_phase(backend, dev, n_watchers: int, n_writes: int,
         block = small.pop("biggest")
         lmatcher = legacy.watcher_hub._fanout_matcher
         lev = legacy_block(block, dev)
+        (lcols, lindex), = lmatcher._shards  # one slot
         cases["fanout_mask_range"] = fanout_checks(
-            mask_case(lev, len(block), lmatcher._cached, lmatcher._index), 20)
-        lcols = lmatcher._cached
+            mask_case(lev, len(block), lcols, lindex), 20)
         w, c = lcols[0].shape
         log(describe_fanout(f"fanout_mask_range [legacy path's largest "
                             f"block, W={w}, E={lev[0].shape[0]}, n_ev="
@@ -2415,8 +2845,7 @@ REMOTE_POOL = 8
 #: the checked columns of a mirror
 MIRROR_HOST_COLUMNS = ("keys_host", "lens_host", "revs_host", "tomb_host",
                        "ttl_host", "n_valid")
-MIRROR_DEVICE_COLUMNS = ("keys_dev", "revs_dev", "tomb_dev", "ttl_dev",
-                         "n_valid_dev")
+MIRROR_DEVICE_COLUMNS = ("keys", "revs", "tomb", "ttl", "n_valid")
 
 
 class NativeBuild:
@@ -2481,7 +2910,9 @@ def mirror_differences(a, b) -> list[str]:
     diff = [c for c in MIRROR_HOST_COLUMNS
             if not np.array_equal(getattr(a, c), getattr(b, c))]
     diff += [c for c in MIRROR_DEVICE_COLUMNS
-             if not torch.equal(getattr(a, c), getattr(b, c))]
+             if len(a.shards) != len(b.shards) or not all(
+                 torch.equal(getattr(x, c), getattr(y, c))
+                 for x, y in zip(a.shards, b.shards))]
     if len(a.val_arena) != len(b.val_arena) or not all(
             np.array_equal(x, y) and np.array_equal(xo, yo)
             for x, y, xo, yo in zip(a.val_arena, b.val_arena, a.val_offsets,
@@ -2762,7 +3193,7 @@ class SidePhases:
 
 def side_phases(args) -> dict:
     """(g) and (h), in the process :class:`SidePhases` starts."""
-    dev = resolve_device()
+    dev = resolve_device(CARD)
     seconds = {}
     t0 = time.perf_counter()
     deployed = deployed_phases(args, dev)
@@ -2781,7 +3212,7 @@ def side_phases(args) -> dict:
 
 def sched_phases(args) -> dict:
     """(i), (j) and (k), in the process a :class:`SidePhases` starts."""
-    dev = resolve_device()
+    dev = resolve_device(CARD)
     t0 = time.perf_counter()
     served = sched_phase(args, dev)
     j = served["follower"]["seconds"]
@@ -5380,7 +5811,7 @@ def main() -> int:
     if args.watch_ab:
         return watch_ab(args)
 
-    dev = resolve_device()
+    dev = resolve_device(CARD)
 
     seconds = {}
     t0 = time.perf_counter()
@@ -5415,6 +5846,9 @@ def main() -> int:
         try:
             launches, main_cases = serve_phase(backend, store, top, dev)
             seconds["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            meshed = mesh_phase(backend, store, top, args, dev)
+            seconds["l"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             compacted = compact_phase(backend, store, top, args.keys, dev)
             seconds["e"] = time.perf_counter() - t0
@@ -5464,6 +5898,7 @@ def main() -> int:
             "library_ms": None,
             "follower_launches": follower_launches[name],
             "replay_launches": replay_launches.get(name, 0),
+            "mesh_launches": meshed["launches"][name],
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

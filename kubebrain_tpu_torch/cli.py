@@ -62,8 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inner-storage", default="memkv",
                    help="host engine backing the cuda mirror (cuda engine only)")
     p.add_argument("--mesh-part", type=int, default=0,
-                   help="devices the mirror's partitions shard across; "
-                        "refused until multi-GPU support (ROADMAP item 10)")
+                   help="slots the cuda mirror's partitions shard across: "
+                        "the first N visible cards on --device cuda (N CPU "
+                        "slots on --device cpu); 0 = every visible card on "
+                        "cuda, one slot on cpu")
     p.add_argument("--key-encoding", choices=("encoded", "raw"), default="",
                    help="mirror key layout (--storage=cuda): 'encoded' = "
                         "order-preserving prefix/dictionary compression of "
@@ -75,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "lower it so merge-fault windows exercise the real "
                         "merge/retry/escalation machinery")
     p.add_argument("--scan-partitions", type=int, default=0,
-                   help="mirror partition count (--storage=cuda); 0 = one")
+                   help="mirror partition count (--storage=cuda), a "
+                        "multiple of the mesh's slots; 0 = one per slot")
     p.add_argument("--data-dir", default="",
                    help="durable storage dir for the native engine (WAL + "
                         "snapshot); empty = in-memory")
@@ -133,8 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="watch fan-out on the device (block-batched "
                         "persistent-table matcher, CUDA kernel K4)")
     p.add_argument("--mesh-wat", type=int, default=0,
-                   help="devices the watcher table shards across; refused "
-                        "until multi-GPU support (ROADMAP item 10)")
+                   help="slots the --tpu-fanout watcher table shards "
+                        "across (cards on cuda, CPU slots on cpu); 0 = one "
+                        "device")
     p.add_argument("--fanout-impl", choices=("block", "legacy"),
                    default="block",
                    help="--tpu-fanout implementation: 'block' = persistent "
@@ -253,15 +257,12 @@ def validate_args(args) -> None:
     for p in ports:
         if not 0 < p < 65536:
             raise SystemExit(f"invalid port {p}")
-    # flags whose modules are not ported yet: refused, never ignored
-    if args.mesh_part or args.mesh_wat:
-        raise SystemExit("--mesh-part/--mesh-wat need multi-GPU support, "
-                         "which is not ported yet (ROADMAP item 10)")
     if args.role == "follower":
         _validate_follower(args)
     elif args.leader_address or args.leader_info:
         raise SystemExit("--leader-address/--leader-info require "
                          "--role follower")
+    # flags whose modules are not ported yet: refused, never ignored
     if args.aio_port or args.front_port:
         raise SystemExit("--aio-port/--front-port need endpoint/aio.py and "
                          "endpoint/front.py, which are not ported yet "
@@ -279,6 +280,15 @@ def validate_args(args) -> None:
         raise SystemExit("--scan-partitions must be >= 0")
     if args.scan_partitions and args.storage != "cuda":
         raise SystemExit("--scan-partitions requires --storage=cuda")
+    # the mesh flags (kubebrain_tpu/cli.py:246-261)
+    if args.mesh_part < 0:
+        raise SystemExit("--mesh-part must be >= 0")
+    if args.mesh_part and args.storage != "cuda":
+        raise SystemExit("--mesh-part requires --storage=cuda")
+    if args.mesh_wat < 0:
+        raise SystemExit("--mesh-wat must be >= 0")
+    if args.mesh_wat and not args.tpu_fanout:
+        raise SystemExit("--mesh-wat requires --tpu-fanout")
     if args.key_encoding and args.storage != "cuda":
         raise SystemExit("--key-encoding requires --storage=cuda")
     if args.sched_depth < 0 or args.sched_queue_limit < 1:
@@ -308,6 +318,17 @@ def validate_args(args) -> None:
                 f"--faults {args.faults!r} unknown; presets: {', '.join(PRESETS)}")
         if args.fault_horizon_s <= 0:
             raise SystemExit("--fault-horizon-s must be > 0")
+
+
+def _boot_mesh(flag: str, n: int | None, axes: tuple, device: str):
+    """``make_mesh`` for a mesh flag, its refusal (more slots than visible
+    cards) a boot error naming the flag."""
+    from .parallel.mesh import make_mesh
+
+    try:
+        return make_mesh(n, axes=axes, device=device)
+    except ValueError as e:
+        raise SystemExit(f"{flag} {n}: {e}") from None
 
 
 def build_backend(args, metrics=None):
@@ -381,9 +402,19 @@ def build_backend(args, metrics=None):
 
             inner_kw["inner_wrap"] = (
                 lambda s: FaultyStorage(s, fault_plane))
-        store = new_storage("cuda", inner=args.inner_storage,
-                            device=args.device,
-                            partitions=args.scan_partitions, **inner_kw)
+        # the partition mesh is built here, so its errors surface at boot
+        # (kubebrain_tpu/cli.py:373-403); no flag = the engine's default
+        # mesh, every visible card on cuda, one slot on cpu
+        mesh = None
+        if args.mesh_part or args.scan_partitions:
+            mesh = _boot_mesh("--mesh-part", args.mesh_part or None,
+                              ("part",), args.device)
+        try:
+            store = new_storage("cuda", inner=args.inner_storage,
+                                device=args.device, mesh=mesh,
+                                partitions=args.scan_partitions, **inner_kw)
+        except ValueError as e:  # partitions no multiple of the mesh
+            raise SystemExit(f"--scan-partitions: {e}") from None
     elif args.storage == "native":
         store = new_storage("native", **native_kw)
     elif args.storage == "remote":
@@ -405,14 +436,18 @@ def build_backend(args, metrics=None):
 
     fanout = None
     if args.tpu_fanout:
+        # the watcher-table mesh, independent of the partition mesh
+        # (kubebrain_tpu/cli.py:425-451)
+        wat_mesh = (_boot_mesh("--mesh-wat", args.mesh_wat, ("wat",),
+                               args.device) if args.mesh_wat else None)
         if args.fanout_impl == "legacy":
             from .ops.fanout import FanoutMatcher
 
-            fanout = FanoutMatcher(device=args.device)
+            fanout = FanoutMatcher(device=args.device, mesh=wat_mesh)
         else:
             from .fanout import DeviceFanout
 
-            fanout = DeviceFanout(device=args.device)
+            fanout = DeviceFanout(device=args.device, mesh=wat_mesh)
         # kb_fanout_sharded: 1 when the table is really distributed
         fanout.set_metrics(metrics)
 

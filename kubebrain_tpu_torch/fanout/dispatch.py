@@ -19,8 +19,9 @@ Contract (``kubebrain_tpu/fanout/dispatch.py:68-104`` on one device):
   also returns that sum as ``int32[1]``, written by the same launch, and
   the host reads it and the first ``total`` entries only, so a transfer is
   O(matched pairs);
-- the caller passes the table's rank index (``WatcherTable.ranked_view``)
-  as ``index``; without it the call builds one from the bound rows;
+- the caller passes the table's rank index (``WatcherTable.shard_views``:
+  one per slot of a sharded table, each dispatched on its own watcher
+  slice) as ``index``; without it the call builds one from the bound rows;
 - the flat indices are int32, as in the JAX package, so ``W * E`` must not
   pass ``ops.fanout.MAX_FLAT`` (K4's wrapper raises): a caller with a
   longer block splits it into pieces of :func:`max_block_events`.

@@ -6,16 +6,25 @@ protocols:
 
 - ``deliver(batch, specs, version)`` — the block path: one K4 call for the
   WHOLE drain block against the persistent :class:`WatcherTable` (one per
-  piece of a block too long for the int32 flat index), then one vectorized
-  demux of the compacted (watcher, event) pairs into
-  per-subscriber event lists. The hub prefers this (``prefers_blocks``).
+  slot of a ``wat`` mesh, and per piece of a block too long for the int32
+  flat index), then one vectorized demux of the compacted (watcher, event)
+  pairs into per-subscriber event lists. The hub prefers this
+  (``prefers_blocks``).
 - ``__call__(events, specs, version)`` — the mask protocol (bool[E, W] in
   spec order), kept so the hub's per-batch route and the differential
   tests run the same machinery.
 
-Dispatch sizing: the compacted-index capacity is a persistent pow2 bucket.
-When the total shows the block overflowed it, the matcher doubles the
-bucket and re-dispatches — so the steady state is ONE call per drain.
+Dispatch sizing: the compacted-index capacity is a persistent pow2 bucket
+(per slot). When a slot's total shows the block overflowed it, the matcher
+doubles the bucket and re-dispatches — so the steady state is ONE call per
+drain and slot.
+
+Mesh (counterpart of ``_wat_shard_map``,
+``kubebrain_tpu/fanout/dispatch.py:43-65``): the table's slots each hold a
+contiguous run of watcher slots; every slot matches the whole block
+against its own run, and the pairs merge back by concatenation in slot
+order, so they come out watcher-major and ascending, exactly as one
+unsharded launch returns them.
 
 :func:`match_oracle` is the brute-force host oracle every path is held
 byte-identical to (raw-bytes etcd range semantics — no packing, no
@@ -71,6 +80,7 @@ class DeviceFanout:
 
     ``device=None`` means ``cuda`` and raises without a card; the tests
     pass ``device="cpu"``, where K4's wrapper computes the plain version.
+    ``mesh`` splits the watcher table over its slots (``WatcherTable``).
     """
 
     #: hub protocol marker: hand this matcher whole drain blocks
@@ -80,10 +90,11 @@ class DeviceFanout:
     #: (``ops/launch_owner.py``); None counts them under nobody
     launch_owner: str | None = None
 
-    def __init__(self, width: int | None = None, metrics=None, device=None):
+    def __init__(self, width: int | None = None, metrics=None, device=None,
+                 mesh=None):
         # width None = auto: the table buckets the packed width to the
         # population's longest key; an int pins it
-        self._table = WatcherTable(width=width, device=device)
+        self._table = WatcherTable(width=width, device=device, mesh=mesh)
         self.device = self._table.device
         self._idx_size = MIN_IDX_SIZE
         self.stats = {"dispatches": 0, "redispatches": 0, "pairs": 0,
@@ -93,10 +104,11 @@ class DeviceFanout:
 
     def set_metrics(self, metrics) -> None:
         """Arm the ``kb.fanout.sharded`` gauge (1 = the watcher table is
-        split over several devices); one device until multi-GPU support."""
+        split over several slots, 0 = one)."""
         if metrics is not None:
-            metrics.emit_gauge("kb.fanout.sharded", 0.0)
-            metrics.register_gauge_fn("kb.fanout.sharded", lambda: 0.0)
+            sharded = lambda: 1.0 if self._table.stats()["sharded"] else 0.0
+            metrics.emit_gauge("kb.fanout.sharded", sharded())
+            metrics.register_gauge_fn("kb.fanout.sharded", sharded)
 
     @property
     def table(self) -> WatcherTable:
@@ -104,6 +116,8 @@ class DeviceFanout:
 
     # ------------------------------------------------------------- matching
     def _pack_events(self, batch):
+        """The block's flipped keys and revisions, E-padded, on the
+        matcher's device (the table's first slot)."""
         e = len(batch)
         epad = pow2_at_least(e, MIN_EVENT_BUCKET)
         keys = [ev.key for ev in batch] + [b""] * (epad - e)
@@ -141,32 +155,44 @@ class DeviceFanout:
         return slots[order], eidx[order], wids
 
     def _match_piece(self, piece, first: int):
-        """One K4 dispatch of events ``piece`` (``batch[first:]``), the
-        bucket regrown and re-dispatched while the total overflows it."""
+        """One K4 dispatch per table slot of events ``piece``
+        (``batch[first:]``), every slot's launch issued before any total is
+        read; the bucket regrown and every slot re-dispatched while a total
+        overflows it. The slots' pairs concatenate in slot order."""
         # packing may grow the table's width (a new epoch): the view, and
         # the rank index with it, is taken after it, at the events' width
         ek, er, epad = self._pack_events(piece)
-        ws, we, wu, wr, index, wids, _ver = self._table.ranked_view()
+        shards, wids, _ver = self._table.shard_views()
+        events = {}  # the block on each distinct device of the slots
+        for _lo, ws, *_rest in shards:
+            if ws.device not in events:
+                events[ws.device] = (ek.to(ws.device), er.to(ws.device))
         while True:
             self.stats["dispatches"] += 1
             with TRACER.stage("fanout_dispatch"), \
                     launch_owner.owned_by(self.launch_owner):
-                _counts, idx, total = fanout_dispatch(
-                    ek, er, len(piece), ws, we, wu, wr, size=self._idx_size,
-                    index=index, with_total=True)
+                out = [fanout_dispatch(
+                    *events[ws.device], len(piece), ws, we, wu, wr,
+                    size=self._idx_size, index=index, with_total=True)
+                    for _lo, ws, we, wu, wr, index in shards]
             with TRACER.stage("fanout_copy"):
-                total = int(_host_pull(total)[0])
-                if total > self._idx_size:
+                totals = [int(_host_pull(total)[0]) for _c, _i, total in out]
+                if max(totals) > self._idx_size:
                     # truncated: double the bucket and re-launch (rare — the
                     # bucket is persistent, so the steady state is one call
-                    # per drain)
-                    self._idx_size = pow2_at_least(total, self._idx_size * 2)
+                    # per drain and slot)
+                    self._idx_size = pow2_at_least(max(totals),
+                                                   self._idx_size * 2)
                     self.stats["redispatches"] += 1
                     continue
-                flat = _host_pull(idx[:total]).astype(np.int64)
+                flat = [_host_pull(idx[:t]).astype(np.int64)
+                        for (_c, idx, _t), t in zip(out, totals)]
                 break
-        self.stats["pairs"] += total
-        return flat // epad, flat % epad + first, wids
+        self.stats["pairs"] += sum(totals)
+        slots = np.concatenate([f // epad + sh[0]
+                                for f, sh in zip(flat, shards)])
+        eidx = np.concatenate([f % epad + first for f in flat])
+        return slots, eidx, wids
 
     # ------------------------------------------------------------ protocols
     def deliver(self, batch, specs, version=None) -> dict[int, list]:

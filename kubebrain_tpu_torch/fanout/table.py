@@ -1,13 +1,16 @@
 """Persistent device-resident watcher-spec table.
 
 Counterpart of ``kubebrain_tpu/fanout/table.py``. The hub's watcher
-population, held as four columns on the table's device in the layout the
-fan-out kernel K4 compares event keys against (``ops/fanout.py``):
+population, held as four columns in the layout the fan-out kernel K4
+compares event keys against (``ops/fanout.py``):
 
     start int32[W, C]   end int32[W, C]   unbounded bool[W]   min_rev int64[W]
 
 (key chunks sign-flipped, revisions one int64 column), plus a host map
-slot → watcher id.
+slot → watcher id. The columns are split over the slots of a ``wat`` mesh
+(``parallel/mesh.py``; one without a mesh): each mesh slot holds a
+contiguous run of W/D table slots, with a rank index of its own
+(:class:`TableShard`).
 
 Lifecycle:
 
@@ -20,12 +23,12 @@ Lifecycle:
   the diff is keyed on watcher ids + filters, so a version REGRESSION (or an
   id collision with different filters) rewrites exactly the rows that
   differ and can never match against a dead population.
-- ``device_view()`` publishes the columns: the whole table on first use or
-  growth, otherwise only the dirty rows (``index_copy_``). The same step
-  brings the table's rank index (``ops.fanout.RankIndex``: the distinct
-  bound rows sorted, each slot's start and end rank) up to the columns it
-  is returned with (``ranked_view()``), so it can never be staler than
-  they are; a stale index would misdeliver silently. A full publication
+- ``shard_views()`` publishes the columns: the whole table on first use or
+  growth, otherwise only the dirty rows (``index_copy_`` into the mesh
+  slot that holds them). The same step brings each shard's rank index
+  (``ops.fanout.RankIndex``: the distinct bound rows sorted, each table
+  slot's start and end rank) up to the columns it is returned with, so it
+  can never be staler than they are; a stale index would misdeliver silently. A full publication
   rebuilds it (C stable sorts of the 2W bound rows). A dirty-row
   publication updates it for the slots whose bound rows differ from the
   published ones, by looking their 2d rows up in a host copy of the
@@ -33,9 +36,11 @@ Lifecycle:
   (``ops.fanout.rank_index_update``: no device work to wait for);
   a change of ``min_rev`` alone, or a watcher re-established on the same
   range in the same slot, leaves it as it is. Rows no slot holds any more
-  stay in the index, harmlessly, until it holds ``INDEX_SLACK`` times the
-  table's capacity; then it is rebuilt.
-- Capacity is a bucket: pow2 up to 1024, 1024-steps beyond.
+  stay in the index, harmlessly, until it holds ``INDEX_SLACK`` times its
+  shard's capacity; then it is rebuilt.
+- Capacity is a bucket: pow2 up to 1024, 1024-steps beyond, rounded up to
+  a multiple of the slot count, so the table always splits evenly (JAX
+  ``fanout/table.py:22``): there is no unsharded fallback.
 - The packed width is sized to the POPULATION, not to the 128-byte
   protocol maximum: registry keys run ~50 bytes, so packing at a pow2
   bucket over the longest live bound (plus the canonicalization margin)
@@ -49,8 +54,8 @@ end the all-zero key, flipped INT_MIN in every chunk; unbounded False)
 fails the ``key < end`` test for every possible key, so padding and freed
 slots are inert regardless of the revision filter.
 
-One device: ``stats()`` reports 1 device and ``sharded`` False until the
-table can be split over several cards.
+``stats()`` reports the mesh slot count as ``devices`` and ``sharded``
+True when the table is split over more than one.
 """
 
 from __future__ import annotations
@@ -61,12 +66,12 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..device import _host_pull
 from ..ops import fanout as fanout_ops
 from ..ops import keys as keyops
 from ..ops.fanout import pow2_at_least
 from ..ops.scan import flip_sign
+from ..parallel.mesh import placement
 
 #: smallest table capacity
 MIN_CAPACITY = 64
@@ -82,9 +87,26 @@ INDEX_SLACK = 3
 _SENTINEL = np.int32(-0x80000000)
 
 
+class TableShard:
+    """One slot's published columns: table slots ``[lo, hi)`` on
+    ``device``, with their rank index and the host copy of its rows
+    (``row_keys`` order)."""
+
+    __slots__ = ("device", "lo", "hi", "cols", "index", "index_keys")
+
+    def __init__(self, device: torch.device, lo: int, hi: int):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.cols: tuple | None = None
+        self.index: fanout_ops.RankIndex | None = None
+        self.index_keys: np.ndarray | None = None
+
+
 class WatcherTable:
-    def __init__(self, width: int | None = None, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, width: int | None = None, device=None, mesh=None):
+        """``mesh``: a ``wat`` mesh (or a list of slots) to split the
+        columns over; ``device`` defaults to its first slot. Without one
+        the table lives on ``device`` alone."""
+        self.device, self._slots = placement(device, mesh, "wat")
         self._auto_width = width is None
         self._width = width if width is not None else MIN_WIDTH
         self._chunks = self._width // 4
@@ -96,10 +118,8 @@ class WatcherTable:
         # widened O(1) fast-path key: (version, count, first wid, last wid)
         self._sync_key: tuple | None = None
         self._epoch = 0          # bumps on (re)allocation → full republish
-        self._dev: tuple | None = None
+        self._shards: list[TableShard] = []
         self._dev_epoch = -1
-        self._index: fanout_ops.RankIndex | None = None  # of self._dev
-        self._index_keys: np.ndarray | None = None  # row_keys of its rows
         self._index_builds = 0
         self._index_updates = 0
         self._index_s = 0.0      # host seconds in index builds and updates
@@ -110,15 +130,17 @@ class WatcherTable:
             self._alloc(self._capacity_for(1))
 
     # ---------------------------------------------------------------- layout
-    @staticmethod
-    def _capacity_for(n: int) -> int:
-        """Pow2 buckets up to 1024, then 1024-step buckets: at 10k watchers
+    def _capacity_for(self, n: int) -> int:
+        """Pow2 buckets up to 1024, then 1024-step buckets (at 10k watchers
         a pure pow2 bucket pads to 16384 — 64% of the kernel's rows would
-        be dead sentinels."""
+        be dead sentinels), rounded up to a multiple of the slot count."""
         n = max(n, 1)
         if n <= 1024:
-            return pow2_at_least(n, MIN_CAPACITY)
-        return ((n + 1023) // 1024) * 1024
+            cap = pow2_at_least(n, MIN_CAPACITY)
+        else:
+            cap = ((n + 1023) // 1024) * 1024
+        d = len(self._slots)
+        return -(-cap // d) * d
 
     def _grow_width_locked(self, n_bytes: int) -> None:
         """Grow the packed width so an ``n_bytes`` key (or bound) fits.
@@ -238,72 +260,78 @@ class WatcherTable:
 
     # ----------------------------------------------------------- publication
     def _publish_locked(self) -> None:
-        """Publish dirty rows (or the whole table on first use / growth) and
-        bring the rank index up to the published columns."""
+        """Publish dirty rows (or the whole table on first use / growth)
+        into the slots that hold them and bring each slot's rank index up
+        to its published columns."""
         hosts = (self._starts, self._ends, self._unb, self._min_rev)
-        if self._dev is None or self._dev_epoch != self._epoch:
+        if not self._shards or self._dev_epoch != self._epoch:
             # a copy on every device, the CPU included: later syncs write
             # the host shadow, never a published column
-            self._dev = tuple(torch.from_numpy(a).to(self.device, copy=True)
-                              for a in hosts)
+            k = self._cap // len(self._slots)
+            self._shards = [TableShard(d, i * k, (i + 1) * k)
+                            for i, d in enumerate(self._slots)]
+            for sh in self._shards:
+                sh.cols = tuple(torch.from_numpy(a[sh.lo:sh.hi]).to(
+                    sh.device, copy=True) for a in hosts)
             self._pub_bounds = (self._starts.copy(), self._ends.copy())
             self._dev_epoch = self._epoch
-            self._index = None
         elif self._dirty:
             idx = np.fromiter(sorted(self._dirty), dtype=np.int64,
                               count=len(self._dirty))
-            idx_dev = torch.from_numpy(idx).to(self.device)
-            for dev, host in zip(self._dev, hosts):
-                dev.index_copy_(0, idx_dev,
-                                torch.from_numpy(host[idx]).to(self.device))
             starts, ends = self._starts[idx], self._ends[idx]
             pub_s, pub_e = self._pub_bounds
             moved = ((starts != pub_s[idx]).any(axis=1)
                      | (ends != pub_e[idx]).any(axis=1))
             pub_s[idx], pub_e[idx] = starts, ends
-            if moved.any():
-                self._update_index_locked(idx[moved], starts[moved],
-                                          ends[moved])
+            for sh in self._shards:
+                mine = (idx >= sh.lo) & (idx < sh.hi)
+                if not mine.any():
+                    continue
+                rows = idx[mine]
+                local = torch.from_numpy(rows - sh.lo).to(sh.device)
+                for dev, host in zip(sh.cols, hosts):
+                    dev.index_copy_(0, local,
+                                    torch.from_numpy(host[rows]).to(sh.device))
+                if (moved & mine).any():
+                    self._update_index_locked(
+                        sh, idx[moved & mine] - sh.lo, starts[moved & mine],
+                        ends[moved & mine])
         self._dirty.clear()
-        if self._index is None:
-            t = time.perf_counter()
-            self._index = fanout_ops.rank_index_plain(self._dev[0],
-                                                      self._dev[1])
-            fanout_ops.check_index(self._index, self._cap, self._chunks,
-                                   self._dev[0].device)
-            self._index_keys = fanout_ops.row_keys(
-                _host_pull(self._index.rows))
-            self._index_builds += 1
-            self._index_s += time.perf_counter() - t
+        for sh in self._shards:
+            if sh.index is None:
+                t = time.perf_counter()
+                sh.index = fanout_ops.rank_index_plain(sh.cols[0], sh.cols[1])
+                fanout_ops.check_index(sh.index, sh.hi - sh.lo, self._chunks,
+                                       sh.cols[0].device)
+                sh.index_keys = fanout_ops.row_keys(_host_pull(sh.index.rows))
+                self._index_builds += 1
+                self._index_s += time.perf_counter() - t
 
-    def _update_index_locked(self, slots, starts, ends) -> None:
-        """The rank index after ``slots`` took new bound rows, or None (to
-        be rebuilt) once the rows no slot holds have piled up."""
+    def _update_index_locked(self, sh: TableShard, slots, starts,
+                             ends) -> None:
+        """``sh``'s rank index after its local ``slots`` took new bound
+        rows, or None (to be rebuilt) once the rows no slot holds have
+        piled up."""
         t = time.perf_counter()
-        if (self._index.rows.shape[0] + 2 * len(slots)
-                > INDEX_SLACK * self._cap):
-            self._index = None
+        if (sh.index.rows.shape[0] + 2 * len(slots)
+                > INDEX_SLACK * (sh.hi - sh.lo)):
+            sh.index = None
         else:
-            self._index, self._index_keys = fanout_ops.rank_index_update(
-                self._index, self._index_keys, slots, starts, ends)
+            sh.index, sh.index_keys = fanout_ops.rank_index_update(
+                sh.index, sh.index_keys, slots, starts, ends)
             self._index_updates += 1
         self._index_s += time.perf_counter() - t
 
-    def device_view(self):
-        """Publish and return ``(starts, ends, unbounded, min_rev, wids,
-        version)`` — the device columns plus the slot→wid host map the
-        demux decodes with. The wids array is a snapshot copy: a concurrent
-        sync can't mutate it under a caller mid-demux."""
+    def shard_views(self):
+        """Publish and return ``(shards, wids, version)``: per slot ``(lo,
+        starts, ends, unbounded, min_rev, index)``, its columns on its
+        device and their rank index, plus the slot→wid host map the demux
+        decodes with. The wids array is a snapshot copy: a concurrent sync
+        can't mutate it under a caller mid-demux."""
         with self._lock:
             self._publish_locked()
-            return (*self._dev, self._wids.copy(), self._version)
-
-    def ranked_view(self):
-        """:meth:`device_view` with the rank index of the same columns:
-        ``(starts, ends, unbounded, min_rev, index, wids, version)``."""
-        with self._lock:
-            self._publish_locked()
-            return (*self._dev, self._index, self._wids.copy(), self._version)
+            return ([(sh.lo, *sh.cols, sh.index) for sh in self._shards],
+                    self._wids.copy(), self._version)
 
     # ------------------------------------------------------------- inspection
     @property
@@ -317,14 +345,14 @@ class WatcherTable:
                 "capacity": self._cap,
                 "width": self._width,
                 "watchers": len(self._specs),
-                "devices": 1,
-                "sharded": False,
+                "devices": len(self._slots),
+                "sharded": len(self._slots) > 1,
                 "epoch": self._epoch,
                 "dirty": len(self._dirty),
                 "version": self._version,
                 "index_builds": self._index_builds,
                 "index_updates": self._index_updates,
-                "index_rows": (0 if self._index is None
-                               else self._index.rows.shape[0]),
+                "index_rows": sum(sh.index.rows.shape[0] for sh in self._shards
+                                  if sh.index is not None),
                 "index_s": self._index_s,
             }

@@ -4,7 +4,8 @@ which replaces the Pallas kernel ``victim_mask_pallas`` of
 
 The wrapper decides by the device of the tensors it is given: on the CPU it
 computes the plain PyTorch version (``ops/compact.py``); on a CUDA device it
-launches the kernel on the current stream, or raises. It keeps a launch
+launches the kernel on that device's current stream, with that device made
+current for the launch, or raises. It keeps a launch
 counter, a plain integer (``victim_mask_batch.launches``), raised by one
 where it launches the kernel and nowhere else.
 
@@ -98,12 +99,13 @@ def victim_mask_batch(keys_t, revs, tomb, ttl, n_valid, start, end,
     counts = scratch[:p]
     if mask.numel() == 0:  # an empty mirror launches nothing
         return mask, counts
-    err = _lib().kb_victim_mask(
-        keys_t.data_ptr(), revs.data_ptr(), tomb.data_ptr(), ttl.data_ptr(),
-        n_valid.data_ptr(), start.data_ptr(), end.data_ptr(), int(bool(unbounded)),
-        int(compact_rev), int(ttl_cutoff), p, c, n, mask.data_ptr(),
-        scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _lib().kb_victim_mask(
+            keys_t.data_ptr(), revs.data_ptr(), tomb.data_ptr(),
+            ttl.data_ptr(), n_valid.data_ptr(), start.data_ptr(),
+            end.data_ptr(), int(bool(unbounded)), int(compact_rev),
+            int(ttl_cutoff), p, c, n, mask.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"victim kernel launch failed: CUDA error {err}")
     victim_mask_batch.launches += 1

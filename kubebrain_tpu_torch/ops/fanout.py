@@ -38,7 +38,8 @@ import torch
 
 from . import keys as keyops
 from . import launch_owner, scan
-from ..device import _host_pull, resolve_device
+from ..device import _host_pull
+from ..parallel.mesh import placement
 from ..trace import TRACER
 
 #: flat indices are int32, as in the JAX package: a dispatch over more than
@@ -431,9 +432,12 @@ class FanoutMatcher:
     :func:`fanout_mask_rank_plain` on the CPU (``fanout_kernels``), both in
     the rank space of the cached table's index.
 
-    ``mesh``: a multi-device watcher table waits for multi-GPU support, so
-    only ``None`` is taken and the ``kb.fanout.sharded`` gauge reads 0.
-    ``device=None`` means ``cuda`` and raises without a card.
+    ``mesh``: a ``wat`` mesh (or a list of slots) to split the watcher
+    columns over, the W bucket rounded up to a multiple of its slot count
+    (counterpart of ``kubebrain_tpu/ops/fanout.py:101-166``); K5 runs once
+    per slot on its run of watchers and the masks join on the watcher
+    axis. ``device=None`` means ``cuda`` (the mesh's first slot with a
+    mesh) and raises without a card.
     """
 
     #: the name this matcher's kernel launches are also counted under
@@ -441,31 +445,31 @@ class FanoutMatcher:
     launch_owner: str | None = None
 
     def __init__(self, width: int = keyops.KEY_WIDTH, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a sharded watcher table needs "
-                                      "multi-GPU support")
-        self.device = resolve_device(device)
+        self.device, self._slots = placement(device, mesh, "wat")
         self._width = width
         self._cache_key: tuple | None = None
-        self._cached = None
-        self._index: RankIndex | None = None  # of the cached columns
+        #: per slot, its cached columns and their rank index
+        self._shards: list[tuple[tuple, RankIndex]] = []
 
     def set_metrics(self, metrics) -> None:
         """Arm the ``kb.fanout.sharded`` gauge: 1 when the watcher table is
-        distributed over several devices, which the port does not do yet."""
+        split over several slots, 0 otherwise."""
         if metrics is not None:
-            metrics.emit_gauge("kb.fanout.sharded", 0.0)
-            metrics.register_gauge_fn("kb.fanout.sharded", lambda: 0.0)
+            sharded = 1.0 if len(self._slots) > 1 else 0.0
+            metrics.emit_gauge("kb.fanout.sharded", sharded)
+            metrics.register_gauge_fn("kb.fanout.sharded", lambda: sharded)
 
     def _watcher_table(self, specs: list[tuple[int, bytes, bytes, int]],
                        version=None):
         """Packed watcher columns, W-padded to a power-of-2 bucket of at
-        least 64 with never-match rows. ``version`` (the hub's watcher-set
+        least 64 (then to a multiple of the slot count) with never-match
+        rows, split over the slots, each run with its rank index
+        (``_shards``). ``version`` (the hub's watcher-set
         counter) makes the cache check O(1); it is widened with the
         population's count and first and last wid, because a restarted hub
         reuses versions from 0 and a bare version match could serve a dead
         population. Without it the key is the O(W) spec tuple. The rank
-        index of the columns is rebuilt in the same step (``_index``)."""
+        indexes are rebuilt in the same step."""
         if version is not None:
             cache_key = (version, len(specs),
                          specs[0][0] if specs else None,
@@ -474,7 +478,8 @@ class FanoutMatcher:
             cache_key = tuple(specs)
         if cache_key != self._cache_key:
             w = len(specs)
-            wpad = pow2_at_least(w, 64)
+            n_slots = len(self._slots)
+            wpad = -(-pow2_at_least(w, 64) // n_slots) * n_slots
             starts = np.full((wpad, self._width // 4), _PAD_START, np.int32)
             ends = np.full((wpad, self._width // 4), _PAD_END, np.int32)
             unbounded = np.zeros(wpad, bool)
@@ -491,19 +496,21 @@ class FanoutMatcher:
                 starts[:w], ends[:w] = scan.flip_sign(s), scan.flip_sign(e)
                 unbounded[:w] = [not e for _, _, e, _ in specs]
                 min_rev[:w] = revisions([r for _, _, _, r in specs])
-            dev = self.device
-            self._cached = tuple(torch.from_numpy(a).to(dev) for a in
-                                 (starts, ends, unbounded, min_rev))
-            self._index = rank_index_plain(self._cached[0], self._cached[1])
-            check_index(self._index, wpad, self._width // 4,
-                        self._cached[0].device)
+            k = wpad // n_slots
+            self._shards = []
+            for i, dev in enumerate(self._slots):
+                cols = tuple(torch.from_numpy(a[i * k:(i + 1) * k]).to(dev)
+                             for a in (starts, ends, unbounded, min_rev))
+                index = rank_index_plain(cols[0], cols[1])
+                check_index(index, k, self._width // 4, cols[0].device)
+                self._shards.append((cols, index))
             self._cache_key = cache_key
-        return self._cached
+        return self._shards
 
     def __call__(self, events, watcher_specs, version=None) -> np.ndarray:
         from . import fanout_kernels
 
-        ws, we, wu, wr = self._watcher_table(watcher_specs, version)
+        shards = self._watcher_table(watcher_specs, version)
         e = len(events)
         # E-pad to a bucket, as the JAX matcher does for its compile cache;
         # the padding events are masked out by n_ev
@@ -511,12 +518,13 @@ class FanoutMatcher:
         keys = [ev.key for ev in events] + [b""] * (epad - e)
         revs = [ev.revision for ev in events] + [0] * (epad - e)
         ek, _ = keyops.pack_keys(keys, self._width)
-        dev = self.device
-        ek = torch.from_numpy(scan.flip_sign(ek)).to(dev)
-        er = torch.from_numpy(revisions(revs)).to(dev)
+        ek = torch.from_numpy(scan.flip_sign(ek))
+        er = torch.from_numpy(revisions(revs))
         with TRACER.stage("fanout_dispatch"), \
                 launch_owner.owned_by(self.launch_owner):
-            mask = fanout_kernels.fanout_mask_range(ek, er, e, ws, we, wu, wr,
-                                                    index=self._index)
+            masks = [fanout_kernels.fanout_mask_range(
+                ek.to(cols[0].device), er.to(cols[0].device), e, *cols,
+                index=index) for cols, index in shards]
         with TRACER.stage("fanout_copy"):
-            return _host_pull(mask)[:e, :len(watcher_specs)]
+            mask = np.concatenate([_host_pull(m) for m in masks], axis=1)
+            return mask[:e, :len(watcher_specs)]

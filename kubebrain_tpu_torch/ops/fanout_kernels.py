@@ -13,7 +13,8 @@ match in the rank space of the watcher table's :class:`RankIndex`
 Each wrapper decides by the device of the tensors it is given: on the CPU
 it computes the plain PyTorch version in rank space (``ops/fanout.py``: for
 K4 the emulation of its kernels, :func:`fanout.fanout_dispatch_ranked`); on
-a CUDA device it launches its kernels on the current stream, or raises.
+a CUDA device it launches its kernels on that device's current stream, with
+that device made current for the launch, or raises.
 Each keeps a launch counter, a plain integer (``fanout_dispatch.launches``),
 raised by one where it launches and nowhere else.
 
@@ -133,12 +134,13 @@ def fanout_dispatch(ev_keys, ev_revs, n_ev: int, w_start, w_end, w_unbounded,
         buf.zero_()
         return (counts, idx, total) if with_total else (counts, idx)
     ptr = buf.data_ptr()
-    err = _lib().kb_fanout_dispatch(
-        ev_keys.data_ptr(), ev_revs.data_ptr(), int(n_ev), e, c,
-        index.rows.data_ptr(), index.rows.shape[0], index.rs.data_ptr(),
-        index.re.data_ptr(), w_unbounded.data_ptr(), w_min_rev.data_ptr(), w,
-        size, ptr + 4 * n_scratch, counts.data_ptr(), idx.data_ptr(), ptr,
-        _stream(ev_keys.device))
+    with torch.cuda.device(ev_keys.device):
+        err = _lib().kb_fanout_dispatch(
+            ev_keys.data_ptr(), ev_revs.data_ptr(), int(n_ev), e, c,
+            index.rows.data_ptr(), index.rows.shape[0], index.rs.data_ptr(),
+            index.re.data_ptr(), w_unbounded.data_ptr(), w_min_rev.data_ptr(),
+            w, size, ptr + 4 * n_scratch, counts.data_ptr(), idx.data_ptr(),
+            ptr, _stream(ev_keys.device))
     if err != 0:
         raise RuntimeError(f"fan-out kernel launch failed: CUDA error {err}")
     fanout_dispatch.launches += 1
@@ -165,11 +167,12 @@ def fanout_mask_range(ev_keys, ev_revs, n_ev: int, w_start, w_end,
     if mask.numel() == 0:
         return mask
     ranks = torch.empty(e, dtype=torch.int32, device=dev)
-    err = _lib().kb_fanout_mask(
-        ev_keys.data_ptr(), ev_revs.data_ptr(), int(n_ev), e, c,
-        index.rows.data_ptr(), index.rows.shape[0], index.rs.data_ptr(),
-        index.re.data_ptr(), w_unbounded.data_ptr(), w_min_rev.data_ptr(), w,
-        ranks.data_ptr(), mask.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        err = _lib().kb_fanout_mask(
+            ev_keys.data_ptr(), ev_revs.data_ptr(), int(n_ev), e, c,
+            index.rows.data_ptr(), index.rows.shape[0], index.rs.data_ptr(),
+            index.re.data_ptr(), w_unbounded.data_ptr(), w_min_rev.data_ptr(),
+            w, ranks.data_ptr(), mask.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fan-out mask kernel launch failed: CUDA error "
                            f"{err}")

@@ -5,7 +5,8 @@
 
 Each wrapper decides by the device of the tensors it is given: on the CPU
 it computes the plain PyTorch version (``ops/scan.py``); on a CUDA device it
-launches its kernel on the current stream, or raises. Each keeps a launch
+launches its kernel on that device's current stream, with that device made
+current for the launch (a mesh puts tensors on several cards), or raises. Each keeps a launch
 counter, a plain integer (``visibility_mask_batch.launches``), raised by one
 where it launches its kernel and nowhere else; the launch is counted there
 under its owner too (``ops/launch_owner.py``).
@@ -78,14 +79,16 @@ def _launch(fn, keys_t, revs, tomb, n_valid, starts, ends, unbounded,
             read_revs, with_q: bool):
     p, c, n, q = _check_layout(keys_t, revs, tomb, n_valid, starts, ends,
                                unbounded, read_revs)
-    mask = torch.empty((q, p, n), dtype=torch.bool, device=keys_t.device)
-    counts = torch.zeros((q, p), dtype=torch.int32, device=keys_t.device)
-    stream = torch.cuda.current_stream(keys_t.device).cuda_stream
-    dims = (p, c, n, q) if with_q else (p, c, n)
-    err = fn(keys_t.data_ptr(), revs.data_ptr(), tomb.data_ptr(),
-             n_valid.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-             unbounded.data_ptr(), read_revs.data_ptr(), *dims,
-             mask.data_ptr(), counts.data_ptr(), stream)
+    dev = keys_t.device
+    with torch.cuda.device(dev):
+        mask = torch.empty((q, p, n), dtype=torch.bool, device=dev)
+        counts = torch.zeros((q, p), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        dims = (p, c, n, q) if with_q else (p, c, n)
+        err = fn(keys_t.data_ptr(), revs.data_ptr(), tomb.data_ptr(),
+                 n_valid.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                 unbounded.data_ptr(), read_revs.data_ptr(), *dims,
+                 mask.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"visibility kernel launch failed: CUDA error {err}")
     return mask, counts

@@ -9,12 +9,18 @@ per-partition byte arenas.
 
 The device columns are held in the layout the visibility kernels read
 (``ops/scan.py``): keys int32[P, C, N] chunk-major and sign-flipped,
-revisions int64[P, N], tombstone and TTL-key flags int8[P, N]. A full build
-uploads every column; the incremental paths (the write-path delta merge and
-compaction) work on the host copies in the mirror's stored domain and
-re-upload only the partitions they changed. Partition borders are
-user-key-aligned, so no version chain straddles two partitions and the
-kernels need no carry between them.
+revisions int64[P, N], tombstone and TTL-key flags int8[P, N]. They are
+split over the slots of a mesh (``parallel/mesh.py``): each slot holds P/D
+contiguous partitions as a :class:`MirrorShard` of its own tensors (one
+slot holds them all). A full build uploads every column; the incremental
+paths (the write-path delta merge and compaction) work on the host copies
+in the mirror's stored domain and re-upload only the partitions they
+changed, on the slots that hold them; a clean slot's shard is carried over
+as it is (counterpart of ``_assemble_sharded``,
+``kubebrain_tpu/storage/tpu/blocks.py:353-388``). Partition borders are
+user-key-aligned, so no version chain straddles two partitions (or two
+slots) and the kernels need no carry between them. The key encoding, and
+with it C, is one for all slots.
 """
 
 from __future__ import annotations
@@ -26,22 +32,36 @@ import torch
 
 from ...ops import keys as keyops
 from ...ops.scan import prepare_layout
+from ...parallel.mesh import Mesh
 from .encode import KeyEncoding, build_encoding
 
 TTL_PREFIX = b"/events/"
 
 
+@dataclass(frozen=True)
+class MirrorShard:
+    """One slot's device columns, in the kernel layout: partitions
+    ``[lo, lo + k)`` of the mirror. With a live encoding the key column
+    holds ENCODED rows (storage/cuda/encode.py) whose lexicographic order
+    equals raw byte order."""
+    device: torch.device   # the slot (a mesh may name a device twice)
+    lo: int
+    keys: torch.Tensor     # int32[k, C, N] chunk-major, sign-flipped
+    revs: torch.Tensor     # int64[k, N]
+    tomb: torch.Tensor     # int8[k, N]
+    ttl: torch.Tensor      # int8[k, N] row belongs to a TTL (/events/) key
+    n_valid: torch.Tensor  # int32[k]
+
+    @property
+    def parts(self) -> int:
+        return self.keys.shape[0]
+
+
 @dataclass
 class Mirror:
-    # device, in the kernel layout. With a live ``encoding`` the key columns
-    # hold ENCODED rows (storage/cuda/encode.py) whose lexicographic order
-    # equals raw byte order; ``lens_host`` then holds encoded-suffix lengths.
-    keys_dev: torch.Tensor     # int32[P, C, N] chunk-major, sign-flipped
-    revs_dev: torch.Tensor     # int64[P, N]
-    tomb_dev: torch.Tensor     # int8[P, N]
-    ttl_dev: torch.Tensor      # int8[P, N] row belongs to a TTL (/events/) key
-    n_valid_dev: torch.Tensor  # int32[P]
-    # host copies (row-aligned with the device arrays)
+    shards: tuple[MirrorShard, ...]  # the device columns, slot by slot
+    # host copies (row-aligned with the device arrays); ``lens_host`` holds
+    # encoded-suffix lengths under a live ``encoding``
     keys_host: np.ndarray   # uint32[P, N, C]
     lens_host: np.ndarray   # int32[P, N]
     revs_host: np.ndarray   # uint64[P, N]
@@ -54,7 +74,7 @@ class Mirror:
     max_rev: int
     key_width: int = 0              # RAW packed key width (bytes)
     encoding: KeyEncoding | None = None
-    # host TTL flag column (row-aligned with ttl_dev): the stored-domain
+    # host TTL flag column (row-aligned with the shards' ttl): the stored-domain
     # merge and compaction carry it along instead of recomputing TTL flags
     # from encoded keys
     ttl_host: np.ndarray | None = None  # bool[P, N]
@@ -62,6 +82,10 @@ class Mirror:
     @property
     def partitions(self) -> int:
         return self.keys_host.shape[0]
+
+    @property
+    def slots(self) -> list[torch.device]:
+        return [sh.device for sh in self.shards]
 
     @property
     def rows(self) -> int:
@@ -208,36 +232,66 @@ def compute_ttl_flags(keys_u8: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return (pref == ttl_pref).all(axis=1) & (lens >= len(ttl_pref))
 
 
-def _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device):
-    """Host row-major columns → the device kernel layout: (keys, revs, tomb,
-    ttl, n_valid) tensors."""
+def slot_list(device) -> list[torch.device]:
+    """The slots a mirror is placed on: a device is one slot; a ``Mesh`` or
+    a list of devices gives its ``part`` slots."""
+    if isinstance(device, (Mesh, list, tuple)):
+        return Mesh.of(device).slots("part")
+    return [torch.device(device)]
+
+
+def _shard(device, lo: int, keys_t, revs, tomb8, ttl8, n_valid) -> MirrorShard:
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return MirrorShard(device, lo, put(keys_t), put(revs), put(tomb8),
+                       put(ttl8), put(np.asarray(n_valid, np.int32)))
+
+
+def _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device) -> tuple:
+    """Host row-major columns → the device kernel layout, split over the
+    slots of ``device`` (:func:`slot_list`): one :class:`MirrorShard` per
+    slot, P/D contiguous partitions each."""
+    slots = slot_list(device)
+    if keys_h.shape[0] % len(slots):
+        raise ValueError(f"{keys_h.shape[0]} partitions do not split over "
+                         f"{len(slots)} slots")
+    k = keys_h.shape[0] // len(slots)
     keys_t, revs, tomb8 = prepare_layout(keys_h, revs_h, tomb_h)
-    put = lambda a: torch.from_numpy(a).to(device)
-    return (put(keys_t), put(revs), put(tomb8),
-            put(np.asarray(ttl_h).astype(np.int8)),
-            put(np.asarray(n_valid, np.int32)))
+    ttl8 = np.asarray(ttl_h).astype(np.int8)
+    return tuple(
+        _shard(d, i * k, *(a[i * k:(i + 1) * k] for a in
+                           (keys_t, revs, tomb8, ttl8, n_valid)))
+        for i, d in enumerate(slots))
 
 
 def _republish(old: Mirror, keys_h, revs_h, tomb_h, ttl_h, n_valid,
                dirty) -> tuple:
-    """Device columns of a successor mirror (single-device counterpart of
+    """Device shards of a successor mirror (counterpart of
     ``_assemble_sharded``, ``kubebrain_tpu/storage/tpu/blocks.py:353``): a
-    copy-on-write clone of the old device tensors with only the ``dirty``
-    partitions re-uploaded; a full upload when the capacity changed.
+    slot holding a ``dirty`` partition gets a copy-on-write clone of its
+    tensors with only those partitions re-uploaded; a clean slot's shard is
+    carried over as it is; a full upload when the capacity changed.
     Readers holding the old Mirror keep its tensors untouched."""
-    device = old.keys_dev.device
-    p, n, c = keys_h.shape
-    if tuple(old.keys_dev.shape) != (p, c, n):
-        return _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device)
-    cols = [old.keys_dev.clone(), old.revs_dev.clone(), old.tomb_dev.clone(),
-            old.ttl_dev.clone()]
-    for q in sorted(dirty):
-        host = (*prepare_layout(keys_h[q : q + 1], revs_h[q : q + 1],
-                                tomb_h[q : q + 1]),
-                np.asarray(ttl_h[q : q + 1]).astype(np.int8))
-        for col, part in zip(cols, host):
-            col[q : q + 1].copy_(torch.from_numpy(part))
-    return (*cols, torch.from_numpy(np.asarray(n_valid, np.int32)).to(device))
+    slots = old.slots
+    if tuple(old.keys_host.shape) != tuple(keys_h.shape):
+        return _upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, slots)
+    out = []
+    for sh in old.shards:
+        mine = [q for q in sorted(dirty) if sh.lo <= q < sh.lo + sh.parts]
+        if not mine:
+            out.append(sh)
+            continue
+        cols = [sh.keys.clone(), sh.revs.clone(), sh.tomb.clone(),
+                sh.ttl.clone()]
+        for q in mine:
+            host = (*prepare_layout(keys_h[q : q + 1], revs_h[q : q + 1],
+                                    tomb_h[q : q + 1]),
+                    np.asarray(ttl_h[q : q + 1]).astype(np.int8))
+            for col, part in zip(cols, host):
+                col[q - sh.lo : q - sh.lo + 1].copy_(torch.from_numpy(part))
+        nv = np.asarray(n_valid[sh.lo : sh.lo + sh.parts], np.int32)
+        out.append(MirrorShard(sh.device, sh.lo, *cols,
+                               torch.from_numpy(nv).to(sh.device)))
+    return tuple(out)
 
 
 def build_mirror_from_arrays(
@@ -255,12 +309,14 @@ def build_mirror_from_arrays(
 ) -> Mirror:
     """Sorted RAW row arrays → partitioned, padded, device-resident Mirror.
 
-    ``n_parts`` partitions (default 1) split at user-key boundaries.
+    ``device`` is one device or the slots of a mesh (:func:`slot_list`);
+    ``n_parts`` partitions (default one per slot, a multiple of the slots)
+    split at user-key boundaries.
     ``encode=True`` builds an order-preserving prefix dictionary from the
     snapshot keys (storage/cuda/encode.py) and stores ENCODED rows, so the
     device key column shrinks from ``key_width`` to ``encoding.width`` bytes
     per row while every kernel compare stays byte-order-exact."""
-    n_parts = n_parts or 1
+    n_parts = n_parts or len(slot_list(device))
     n = len(keys_u8)
     if keys_u8.shape[1] != key_width:
         padded = np.zeros((n, key_width), dtype=np.uint8)
@@ -311,11 +367,8 @@ def build_mirror_from_arrays(
         offs.append((off64[lo : hi + 1] - off64[lo]).astype(np.uint64))
     n_valid = np.array(counts, dtype=np.int32)
 
-    keys_d, revs_d, tomb_d, ttl_d, nv_d = _upload(keys_h, revs_h, tomb_h, ttl_h,
-                                                  n_valid, device)
     return Mirror(
-        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
-        n_valid_dev=nv_d,
+        shards=_upload(keys_h, revs_h, tomb_h, ttl_h, n_valid, device),
         keys_host=keys_h, lens_host=lens_h, revs_host=revs_h, tomb_host=tomb_h,
         n_valid=n_valid, val_arena=arenas, val_offsets=offs,
         snapshot_ts=snapshot_ts,
@@ -360,12 +413,9 @@ def mirror_from_reference(arrays, device) -> Mirror:
     tomb_h = np.asarray(arrays["tomb_host"], dtype=bool)
     n_valid = np.asarray(arrays["n_valid"], dtype=np.int32)
     ttl = arrays.get("ttl_host")
-    keys_d, revs_d, tomb_d, ttl_d, nv_d = _upload(
-        keys_h, revs_h, tomb_h, np.zeros(tomb_h.shape, bool) if ttl is None
-        else ttl, n_valid, device)
     return Mirror(
-        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
-        n_valid_dev=nv_d,
+        shards=_upload(keys_h, revs_h, tomb_h, np.zeros(tomb_h.shape, bool)
+                       if ttl is None else ttl, n_valid, device),
         keys_host=keys_h,
         lens_host=np.asarray(arrays["lens_host"], dtype=np.int32),
         revs_host=revs_h, tomb_host=tomb_h, n_valid=n_valid,
@@ -402,11 +452,9 @@ def _host_columns(mirror: Mirror, cap: int):
 def _successor(mirror: Mirror, cols, n_valid, arenas, offs, dirty,
                snapshot_ts: int, max_rev: int) -> Mirror:
     keys_h, lens_h, revs_h, tomb_h, ttl_h = cols
-    keys_d, revs_d, tomb_d, ttl_d, nv_d = _republish(
-        mirror, keys_h, revs_h, tomb_h, ttl_h, n_valid, dirty)
     return Mirror(
-        keys_dev=keys_d, revs_dev=revs_d, tomb_dev=tomb_d, ttl_dev=ttl_d,
-        n_valid_dev=nv_d,
+        shards=_republish(mirror, keys_h, revs_h, tomb_h, ttl_h, n_valid,
+                          dirty),
         keys_host=keys_h, lens_host=lens_h, revs_host=revs_h, tomb_host=tomb_h,
         n_valid=n_valid, val_arena=arenas, val_offsets=offs,
         snapshot_ts=snapshot_ts, max_rev=max_rev,

@@ -9,6 +9,12 @@ Counterpart of ``kubebrain_tpu/storage/tpu/engine.py``:
   CUDA visibility kernels K1/K2 (``ops/scan_kernels.py``), then a
   per-partition mask→index compaction in PyTorch ops (J1) so the host pulls
   O(visible rows), never the mask;
+- **mesh**: the mirror's partitions split over the ``part`` slots of a
+  mesh (``parallel/mesh.py``; default every visible card on ``cuda``, one
+  slot on the CPU). K1/K2/K3 launch once per slot on that slot's shard, J1
+  and J3 stay slot-local, and the counts are summed on the host (the JAX
+  engine's ``psum``, ``_maybe_shard_map``,
+  ``kubebrain_tpu/storage/tpu/engine.py:191-218``);
 - **freshness**: committed version rows are appended to a host-side delta
   index by the batch decorator, which seals them into sorted stored-domain
   blocks; queries overlay it (every delta revision exceeds every published
@@ -46,6 +52,8 @@ from ...device import _host_pull, _pow2_bucket, resolve_device
 from ...ops import compact_kernels, launch_owner, scan_kernels
 from ...ops import keys as keyops
 from ...ops.scan import flip_sign
+from ...parallel import mesh as mesh_mod
+from ...parallel.mesh import Mesh, make_mesh
 from ...trace import TRACER
 from .. import BatchWrite, CASFailedError, KvStorage, Partition, register_engine
 from ..errors import StorageError, UncertainResultError
@@ -218,6 +226,29 @@ def query_tensors(encoding, key_width: int, specs, device):
             put(np.array([r for _s, _e, r in specs], dtype=np.int64)))
 
 
+def placement(device=None, mesh=None) -> tuple[torch.device, list]:
+    """(device, part slots) of a mirror (``parallel.mesh.placement``).
+    Without a mesh: every visible card for ``cuda`` with no index (the JAX
+    engine's every-device default, ``storage/tpu/engine.py:463``), else
+    one slot on ``device``."""
+    if mesh is None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            mesh = make_mesh(device=dev)
+    return mesh_mod.placement(device, mesh, "part")
+
+
+def partition_count(partitions: int, slots: list) -> int:
+    """--scan-partitions: the mirror's partition count, decoupled from the
+    slot count (0 = one per slot), and a multiple of it, so that each slot
+    holds P/D contiguous partitions (``storage/tpu/engine.py:464-471``)."""
+    if partitions and partitions % len(slots):
+        raise ValueError(
+            f"partitions={partitions} must be a multiple of the mesh "
+            f"part-axis size {len(slots)}")
+    return int(partitions) or len(slots)
+
+
 def _resolve_key_encoding(encode_keys: bool | None) -> bool:
     """Order-preserving key encoding (storage/cuda/encode.py): default on;
     KB_ENCODE_KEYS=0 opts back into the raw layout."""
@@ -248,11 +279,12 @@ class TorchScanner(Scanner):
         host_limit_threshold: int = 1024,
         partitions: int = 0,
         encode_keys: bool | None = None,
+        mesh=None,
     ):
         super().__init__(store, get_compact_revision, retry_min_revision,
                          compact_history, max_workers)
-        self._device = resolve_device(device)
-        self._partitions = int(partitions) or 1
+        self._device, self._slots = placement(device, mesh)
+        self._partitions = partition_count(partitions, self._slots)
         self._kw = key_width
         self._merge_threshold = merge_threshold
         self._host_limit_threshold = host_limit_threshold
@@ -310,9 +342,10 @@ class TorchScanner(Scanner):
     def register_metrics(self, metrics) -> None:
         """Callback gauges (counterpart of ``storage/tpu/engine.py:554``):
         ``kb.mirror.state{state=}``, one 0/1 series per state of the mirror
-        state machine, and the mirror's bytes on its one device,
-        ``kb.mirror.bytes{device=}``, beside ``kb.mirror.raw.bytes{device=}``,
-        what the same rows would take with raw keys. All are unregistered
+        state machine, and per distinct device of the mesh the bytes of the
+        slots it holds, ``kb.mirror.bytes{device=}``, beside
+        ``kb.mirror.raw.bytes{device=}``, what the same rows would take with
+        raw keys. All are unregistered
         at :meth:`close`. The same sink takes the engine's counters and
         histograms (``kb.degraded.seconds``, ``kb.mirror.merge.*``,
         ``kb.compact.*``), emitted where the JAX engine emits them."""
@@ -324,13 +357,14 @@ class TorchScanner(Scanner):
                 "kb.mirror.state", functools.partial(self._state_gauge, state),
                 state=state)
             self._gauge_regs.append(("kb.mirror.state", {"state": state}))
-        device = str(self._device)
-        for name, raw in (("kb.mirror.bytes", False),
-                          ("kb.mirror.raw.bytes", True)):
-            metrics.register_gauge_fn(
-                name, functools.partial(self._mirror_device_bytes, raw),
-                device=device)
-            self._gauge_regs.append((name, {"device": device}))
+        for device in dict.fromkeys(str(d) for d in self._slots):
+            for name, raw in (("kb.mirror.bytes", False),
+                              ("kb.mirror.raw.bytes", True)):
+                metrics.register_gauge_fn(
+                    name, functools.partial(self._mirror_device_bytes,
+                                            device, raw),
+                    device=device)
+                self._gauge_regs.append((name, {"device": device}))
 
     def close(self) -> None:
         # the callback gauges close over the live mirror: drop them, so a
@@ -344,22 +378,26 @@ class TorchScanner(Scanner):
     def _state_gauge(self, state: str) -> float:
         return 1.0 if self._mirror_state == state else 0.0
 
-    def _mirror_device_bytes(self, raw_equivalent: bool = False) -> float:
-        """Bytes of the published mirror's device columns (shapes only, no
-        copy). ``raw_equivalent`` rescales the key column to the raw packed
-        width: the bytes an un-encoded mirror of the same rows would hold."""
+    def _mirror_device_bytes(self, device: str,
+                             raw_equivalent: bool = False) -> float:
+        """Bytes of the published mirror's device columns on ``device``,
+        summed over the slots it holds (shapes only, no copy).
+        ``raw_equivalent`` rescales the key column to the raw packed width:
+        the bytes an un-encoded mirror of the same rows would hold."""
         mirror = self._mirror
         if mirror is None:
             return 0.0
         total = 0
-        for t in (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-                  mirror.ttl_dev, mirror.n_valid_dev):
-            nbytes = t.numel() * t.element_size()
-            if (raw_equivalent and t is mirror.keys_dev
-                    and mirror.encoding is not None):
-                nbytes = (nbytes // mirror.encoding.chunks
-                          * (mirror.raw_key_width // 4))
-            total += nbytes
+        for sh in mirror.shards:
+            if str(sh.device) != device:
+                continue
+            for t in (sh.keys, sh.revs, sh.tomb, sh.ttl, sh.n_valid):
+                nbytes = t.numel() * t.element_size()
+                if (raw_equivalent and t is sh.keys
+                        and mirror.encoding is not None):
+                    nbytes = (nbytes // mirror.encoding.chunks
+                              * (mirror.raw_key_width // 4))
+                total += nbytes
         return float(total)
 
     def encoding_stats(self) -> dict:
@@ -630,7 +668,7 @@ class TorchScanner(Scanner):
             else:
                 self.mirror_builds["export"] += 1
                 return build_mirror_from_arrays(
-                    *arrays, self._device, self._kw, snapshot,
+                    *arrays, self._slots, self._kw, snapshot,
                     n_parts=self._partitions, encode=self._encode)
         self.mirror_builds["rows"] += 1
         rows: list[tuple[bytes, int, bytes]] = []
@@ -638,7 +676,7 @@ class TorchScanner(Scanner):
             ukey, rev = coder.decode(ikey)
             if rev != 0:
                 rows.append((ukey, rev, value))
-        return build_mirror(rows, self._device, self._kw, snapshot,
+        return build_mirror(rows, self._slots, self._kw, snapshot,
                             n_parts=self._partitions, encode=self._encode)
 
     def _rebuild_from_store(self) -> None:
@@ -726,47 +764,60 @@ class TorchScanner(Scanner):
         self._ensure_published(full=True)
 
     # -------------------------------------------------------------- queries
-    def _dev_mask(self, mirror: Mirror, start: bytes, end: bytes, read_rev: int):
-        """Visibility (mask [P, N] device tensor, counts [P]) through K1 —
-        with :meth:`_dev_mask_batch` the only place a scan kernel is
-        launched, so count/range/stream cannot diverge."""
-        starts, ends, unb, rrev = query_tensors(
-            mirror.encoding, self._kw, [(start, end, read_rev)], self._device)
+    def _per_slot(self, mirror: Mirror, kernel, *query):
+        """``kernel(shard columns, *query)`` on every shard of ``mirror``,
+        the query's tensors moved to each slot → ``([mask], [counts])``, one
+        pair per slot. Every launch is issued before any result is read."""
+        masks, counts = [], []
         with launch_owner.owned_by(self.launch_owner):
-            return scan_kernels.visibility_mask_batch(
-                mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-                mirror.n_valid_dev, starts[0], ends[0], unb, rrev)
+            for sh in mirror.shards:
+                q = [t.to(sh.device) for t in query]
+                m, c = kernel(sh.keys, sh.revs, sh.tomb, sh.n_valid, *q)
+                masks.append(m)
+                counts.append(c)
+        return masks, counts
+
+    def _dev_mask(self, mirror: Mirror, start: bytes, end: bytes, read_rev: int):
+        """Visibility through K1, once per slot: ``([mask [k, N]], [counts
+        [k]])`` — with :meth:`_dev_mask_batch` the only place a scan kernel
+        is launched, so count/range/stream cannot diverge."""
+        starts, ends, unb, rrev = query_tensors(
+            mirror.encoding, self._kw, [(start, end, read_rev)], "cpu")
+        return self._per_slot(mirror, scan_kernels.visibility_mask_batch,
+                              starts[0], ends[0], unb, rrev)
 
     def _dev_mask_batch(self, mirror: Mirror, specs):
         """Batched visibility for Q distinct ``(start, end, read_rev)``
-        queries in ONE launch of K2. Q is padded to the next power of two
-        with copies of query 0; ``(mask [Qpad, P, N], counts [Qpad, P])``
-        cover the padded axis and callers slice ``[:len(specs)]``."""
+        queries in ONE launch of K2 per slot. Q is padded to the next power
+        of two with copies of query 0; ``([mask [Qpad, k, N]], [counts
+        [Qpad, k]])`` cover the padded axis and callers slice
+        ``[:len(specs)]``."""
         qpad = 1
         while qpad < len(specs):
             qpad *= 2
         padded = list(specs) + [specs[0]] * (qpad - len(specs))
-        starts, ends, unb, rrevs = query_tensors(
-            mirror.encoding, self._kw, padded, self._device)
-        with launch_owner.owned_by(self.launch_owner):
-            return scan_kernels.visibility_mask_batch_q(
-                mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-                mirror.n_valid_dev, starts, ends, unb, rrevs)
+        return self._per_slot(
+            mirror, scan_kernels.visibility_mask_batch_q,
+            *query_tensors(mirror.encoding, self._kw, padded, "cpu"))
 
-    def _dev_visible_indices(self, mask, counts, n_rows: int):
-        """(total, flat p·N + row indices int64) from a device mask [P, N]:
-        per-partition counts first (a tiny transfer), then the compacted
-        index block [P, pow2(max count)] — O(visible rows) on the wire."""
-        counts_h = _host_pull(counts)  # [P]; waits for the kernel
-        total = int(counts_h.sum())
+    def _dev_visible_indices(self, masks, counts, n_rows: int):
+        """(total, flat p·N + row indices int64) from the per-slot device
+        masks [k, N]: every slot's per-partition counts first (a tiny
+        transfer), then, from each slot with a visible row, its compacted
+        index block [k, pow2(the slot's max count)], its local partitions
+        mapped to the global p — O(visible rows) on the wire."""
+        counts_h = [_host_pull(c) for c in counts]  # waits for the kernels
+        total = int(sum(int(c.sum()) for c in counts_h))
         if total == 0:
             return 0, np.empty(0, dtype=np.int64)
-        size = _pow2_bucket(int(counts_h.max()), n_rows)
-        out = _host_pull(_part_indices_of_mask(mask, size))
-        pieces = [
-            out[p, :c].astype(np.int64) + p * n_rows
-            for p, c in enumerate(counts_h) if c
-        ]
+        pieces, lo = [], 0
+        for mask, c_h in zip(masks, counts_h):
+            if c_h.any():
+                size = _pow2_bucket(int(c_h.max()), n_rows)
+                out = _host_pull(_part_indices_of_mask(mask, size))
+                pieces += [out[p, :c].astype(np.int64) + (lo + p) * n_rows
+                           for p, c in enumerate(c_h) if c]
+            lo += len(c_h)
         return total, np.concatenate(pieces)
 
     def _materialize_visible(self, mirror: Mirror, idx: np.ndarray, overlay):
@@ -864,34 +915,40 @@ class TorchScanner(Scanner):
             mirror = self._mirror
             overlays = [self._delta.overlay(s[1], s[2], s[3]) for _, s in device]
         with TRACER.stage("device_dispatch", device=True):
-            mask, counts = self._dev_mask_batch(
+            masks, counts = self._dev_mask_batch(
                 mirror, [(s[1], s[2], s[3]) for _, s in device])
-            sel = np.zeros(int(mask.shape[0]), dtype=bool)
+            sel = np.zeros(int(masks[0].shape[0]), dtype=bool)
             for k, (_, s) in enumerate(device):
                 sel[k] = s[0] == "range"  # counts (and pow2 pad) stay off-wire
         n_rows = mirror.keys_host.shape[1]
-        assert int(mask.shape[2]) == n_rows, (mask.shape, n_rows)
-        n_parts = int(mask.shape[1])
-        stride = n_parts * n_rows
+        assert int(masks[0].shape[2]) == n_rows, (masks[0].shape, n_rows)
+        stride = mirror.partitions * n_rows
         idx = np.empty(0, dtype=np.int64)
         with TRACER.stage("device_compute", device=True):
-            counts_h = _host_pull(counts)  # waits for the kernel; [Qpad, P]
-            want = int(counts_h[sel].max()) if sel.any() else 0
-            if want:
-                size = _pow2_bucket(want, n_rows)
-                sel_dev = torch.from_numpy(sel).to(mask.device)
-                idx_parts = _host_pull(_part_indices_of_mask(
-                    mask & sel_dev.view(-1, 1, 1), size))
-                pieces = []
-                for k in np.nonzero(sel)[0]:
-                    base = int(k) * stride
-                    for p in range(n_parts):
-                        c = int(counts_h[k, p])
+            # waits for the kernels; [Qpad, k] per slot
+            per_slot = [_host_pull(c) for c in counts]
+            counts_h = np.concatenate(per_slot, axis=1)  # [Qpad, P]
+            blocks = []  # (first partition, [Qpad, k, size] or None, counts)
+            for sh, mask, c_h in zip(mirror.shards, masks, per_slot):
+                want = int(c_h[sel].max()) if sel.any() else 0
+                block = None
+                if want:
+                    size = _pow2_bucket(want, n_rows)
+                    sel_dev = torch.from_numpy(sel).to(mask.device)
+                    block = _host_pull(_part_indices_of_mask(
+                        mask & sel_dev.view(-1, 1, 1), size))
+                blocks.append((sh.lo, block, c_h))
+            pieces = []
+            for k in np.nonzero(sel)[0]:
+                base = int(k) * stride
+                for lo, block, c_h in blocks:
+                    for p in range(c_h.shape[1] if block is not None else 0):
+                        c = int(c_h[k, p])
                         if c:
-                            pieces.append(idx_parts[k, p, :c].astype(np.int64)
-                                          + base + p * n_rows)
-                if pieces:
-                    idx = np.concatenate(pieces)
+                            pieces.append(block[k, p, :c].astype(np.int64)
+                                          + base + (lo + p) * n_rows)
+            if pieces:
+                idx = np.concatenate(pieces)
         with TRACER.stage("host_copy"):
             for k, (qi, spec) in enumerate(device):
                 if spec[0] == "count":
@@ -970,7 +1027,7 @@ class TorchScanner(Scanner):
         with TRACER.stage("device_dispatch", device=True):
             _, counts = self._dev_mask(mirror, start, end, read_revision)
         with TRACER.stage("device_compute", device=True):
-            total = int(_host_pull(counts).sum())
+            total = sum(int(_host_pull(c).sum()) for c in counts)
         return self._overlay_corrected_count(mirror, total, overlay, read_revision)
 
     def _overlay_corrected_count(self, mirror: Mirror, total: int, overlay,
@@ -1069,67 +1126,84 @@ class TorchScanner(Scanner):
 
     # -------------------------------------------------------------- compact
     def _victim_args(self, mirror: Mirror, start: bytes, end: bytes,
-                     compact_rev: int, ttl_cutoff: int) -> tuple:
-        """K3's argument list for internal-key borders [start, end) over
-        ``mirror``: its device columns and the flipped bound rows."""
+                     compact_rev: int, ttl_cutoff: int) -> list[tuple]:
+        """K3's argument lists for internal-key borders [start, end) over
+        ``mirror``, one per slot: its shard's columns and the flipped bound
+        rows on its device."""
         s_user = coder.decode(start)[0] if coder.is_internal_key(start) else b""
         e_user = coder.decode(end)[0] if coder.is_internal_key(end) else b""
         s_row, e_row, unbounded = bound_rows(mirror.encoding, self._kw,
                                              s_user, e_user)
-        put = lambda r: torch.from_numpy(flip_sign(r)).to(self._device)
-        return (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-                mirror.ttl_dev, mirror.n_valid_dev, put(s_row), put(e_row),
-                unbounded, compact_rev, ttl_cutoff)
+        s_row, e_row = flip_sign(s_row), flip_sign(e_row)
+        return [(sh.keys, sh.revs, sh.tomb, sh.ttl, sh.n_valid,
+                 torch.from_numpy(s_row).to(sh.device),
+                 torch.from_numpy(e_row).to(sh.device),
+                 unbounded, compact_rev, ttl_cutoff) for sh in mirror.shards]
 
     def _victim_mask(self, mirror: Mirror, start: bytes, end: bytes,
                      compact_rev: int, ttl_cutoff: int):
-        """The victim mask [P, N] and the victims of each partition
-        int32[P], both from one K3 launch, the one place compaction
-        launches it."""
+        """Per slot, the victim mask [k, N] and the victims of each
+        partition int32[k], both from one K3 launch: ``([mask],
+        [counts])``. The one place compaction launches it."""
         args = self._victim_args(mirror, start, end, compact_rev, ttl_cutoff)
         with launch_owner.owned_by(self.launch_owner):
-            return compact_kernels.victim_mask_batch(*args)
+            out = [compact_kernels.victim_mask_batch(*a) for a in args]
+        return [m for m, _c in out], [c for _m, c in out]
 
-    def _pull_victim_indices(self, mask: torch.Tensor, counts: torch.Tensor,
+    def _pull_victim_indices(self, masks, counts,
                              mirror: Mirror) -> dict[int, np.ndarray]:
         """``{partition: ascending victim row indices}`` for every partition
-        with a victim, through the two-phase transfer of
-        ``storage/tpu/engine.py:1622``: K3's per-partition victim counts
-        first (4·P bytes; the valid rows come from the mirror's host
-        ``n_valid``), then only the smaller of the victim and survivor index
-        sets as a [P, pow2(max count)] block, the complement rebuilt on the
-        host. The [P, N] mask itself crosses only when that block would be
-        wider than it."""
+        with a victim, from the per-slot masks [k, N] and counts [k] of
+        :meth:`_victim_mask`, through the two-phase transfer of
+        ``storage/tpu/engine.py:1622``: every slot's victim counts first
+        (4·P bytes; the valid rows come from the mirror's host ``n_valid``),
+        then, per slot with a victim, only the smaller of its victim and
+        survivor index sets as a [k, pow2(max count)] block, the complement
+        rebuilt on the host. A slot's [k, N] mask itself crosses only when
+        that block would be wider than it."""
+        vic = [_host_pull(c) for c in counts]
+        out: dict[int, np.ndarray] = {}
+        lo = 0
+        for mask, vic_h in zip(masks, vic):
+            self._pull_slot_victims(mask, vic_h, mirror.n_valid[lo:lo + len(vic_h)],
+                                    lo, out)
+            lo += len(vic_h)
+        return out
+
+    @staticmethod
+    def _pull_slot_victims(mask: torch.Tensor, vic_h: np.ndarray,
+                           n_valid: np.ndarray, lo: int, out: dict) -> None:
+        """One slot's share of :meth:`_pull_victim_indices`: its partitions
+        are ``lo + p``."""
         n_rows = int(mask.shape[-1])
-        vic_h = _host_pull(counts)
-        valid_h = np.minimum(mirror.n_valid, n_rows)
+        valid_h = np.minimum(n_valid, n_rows)
         total_vic = int(vic_h.sum())
         if total_vic == 0:
-            return {}
+            return
         surv_h = valid_h - vic_h
         use_survivors = int(surv_h.sum()) < total_vic
         want = int(surv_h.max()) if use_survivors else int(vic_h.max())
         size = _pow2_bucket(want, n_rows)
-        out: dict[int, np.ndarray] = {}
         if size * 8 > n_rows:
             mask_h = _host_pull(mask)
             for p in np.nonzero(vic_h)[0]:
                 p = int(p)
-                out[p] = np.nonzero(mask_h[p, : int(valid_h[p])])[0]
-            return out
+                out[lo + p] = np.nonzero(mask_h[p, : int(valid_h[p])])[0]
+            return
         if use_survivors:
-            idx = _host_pull(_part_survivor_indices(mask, mirror.n_valid_dev, size))
+            nv = torch.from_numpy(np.ascontiguousarray(n_valid, np.int32))
+            idx = _host_pull(_part_survivor_indices(mask, nv.to(mask.device),
+                                                    size))
             for p in np.nonzero(vic_h)[0]:
                 p = int(p)
                 pmask = np.ones(int(valid_h[p]), dtype=bool)
                 pmask[idx[p, : int(surv_h[p])].astype(np.int64)] = False
-                out[p] = np.nonzero(pmask)[0]
+                out[lo + p] = np.nonzero(pmask)[0]
         else:
             idx = _host_pull(_part_indices_of_mask(mask, size))
             for p in np.nonzero(vic_h)[0]:
                 p = int(p)
-                out[p] = idx[p, : int(vic_h[p])].astype(np.int64)
-        return out
+                out[lo + p] = idx[p, : int(vic_h[p])].astype(np.int64)
 
     def _compact_victim_rows(self, mirror: Mirror, p: int, rows: np.ndarray):
         """The victim-only decode point: raw key bytes for exactly the rows
@@ -1442,9 +1516,14 @@ class CudaKvStorage(KvStorage):
 
     def __init__(self, inner: KvStorage, device=None,
                  key_width: int = keyops.KEY_WIDTH, partitions: int = 0,
-                 **scanner_kw):
+                 mesh=None, **scanner_kw):
         self._inner = inner
-        self._device = resolve_device(device)
+        self._device, slots = placement(device, mesh)
+        # the mirror's part slots, resolved once, so that the scanner
+        # holds the mesh this engine was built with; a bad partition count
+        # raises here, not at the first read
+        self._mesh = Mesh.of(slots)
+        partition_count(partitions, slots)
         self._kw = key_width
         self._partitions = partitions
         self._scanner_kw = scanner_kw
@@ -1462,7 +1541,7 @@ class CudaKvStorage(KvStorage):
     def make_scanner(self, **kw) -> TorchScanner:
         kw.update(self._scanner_kw)
         self._scanner = TorchScanner(self, device=self._device,
-                                     key_width=self._kw,
+                                     key_width=self._kw, mesh=self._mesh,
                                      partitions=self._partitions, **kw)
         return self._scanner
 
@@ -1644,14 +1723,18 @@ class _TrackedBatch(BatchWrite):
 def _cuda_factory(inner: str = "memkv", device=None,
                   key_width: int = keyops.KEY_WIDTH, partitions: int = 0,
                   encode_keys: bool | None = None, merge_threshold: int = 0,
-                  inner_wrap=None, inner_partitions: int = 0,
+                  inner_wrap=None, inner_partitions: int = 0, mesh=None,
                   **inner_kw) -> CudaKvStorage:
-    """``partitions`` is the mirror's partition count; ``inner_partitions``
-    the host engine's own (``native``/``remote`` ``partitions``: the shard
-    map its host scans split by), passed on when nonzero."""
+    """``partitions`` is the mirror's partition count (a multiple of the
+    mesh's ``part`` slots); ``inner_partitions`` the host engine's own
+    (``native``/``remote`` ``partitions``: the shard map its host scans
+    split by), passed on when nonzero."""
     from .. import new_storage
 
-    dev = resolve_device(device)  # no card and no explicit CPU: raise here
+    # no card and no explicit CPU, or partitions the mesh can't split:
+    # raise here, before the host engine opens
+    dev, slots = placement(device, mesh)
+    partition_count(partitions, slots)
     scanner_kw = {}
     if encode_keys is not None:
         scanner_kw["encode_keys"] = encode_keys
@@ -1665,7 +1748,7 @@ def _cuda_factory(inner: str = "memkv", device=None,
         # injected uncertainty exercises the mirror's quarantine machinery)
         host = inner_wrap(host)
     return CudaKvStorage(host, device=dev, key_width=key_width,
-                         partitions=partitions, **scanner_kw)
+                         partitions=partitions, mesh=mesh, **scanner_kw)
 
 
 register_engine("cuda", _cuda_factory)

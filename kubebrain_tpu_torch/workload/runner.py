@@ -627,12 +627,20 @@ class WorkloadRunner:
                 log_fh.close()
 
     def _mesh_args(self) -> list[str]:
-        # the multi-device flags are refused by spec.validate (ROADMAP
-        # item 10); the device matcher reaches leader AND followers, so
-        # every replica carries it — the follower offload leg of
-        # docs/watch.md (watch clients already pin to followers when
-        # replicas > 0)
-        return ["--tpu-fanout"] if self.spec.tpu_fanout else []
+        args: list[str] = []
+        if self.spec.mesh_part:
+            args += ["--mesh-part", str(self.spec.mesh_part)]
+        if self.spec.scan_partitions:
+            args += ["--scan-partitions", str(self.spec.scan_partitions)]
+        if self.spec.tpu_fanout:
+            # the device matcher reaches leader AND followers, so every
+            # replica carries it — the follower offload leg of
+            # docs/watch.md (watch clients already pin to followers when
+            # replicas > 0)
+            args += ["--tpu-fanout"]
+            if self.spec.mesh_wat:
+                args += ["--mesh-wat", str(self.spec.mesh_wat)]
+        return args
 
     def _probe(self, target: str | None = None, proc: Any = None,
                deadline_s: float = 60.0) -> None:
@@ -1573,11 +1581,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="what the spawned servers serve on (--device of "
                          "the port's CLI); cuda raises without a card")
     ap.add_argument("--mesh-part", type=int, default=0,
-                    help="refused above 0 until multi-GPU support "
-                         "(ROADMAP item 10)")
+                    help="--mesh-part of the spawned servers (--storage "
+                         "cuda): slots the mirror shards across")
     ap.add_argument("--scan-partitions", type=int, default=0,
-                    help="refused above 0 until multi-GPU support "
-                         "(ROADMAP item 10)")
+                    help="--scan-partitions of the spawned servers")
     ap.add_argument("--replicas", type=int, default=0,
                     help="read scale-out (docs/replication.md): spawn this "
                          "many follower replicas next to the leader; "
@@ -1615,8 +1622,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="spawn servers with the device fan-out matcher "
                          "(implied by --scenario watch-heavy)")
     ap.add_argument("--mesh-wat", type=int, default=0,
-                    help="refused above 0 until multi-GPU support "
-                         "(ROADMAP item 10)")
+                    help="--mesh-wat of the spawned servers: slots the "
+                         "watcher table shards across (implies "
+                         "--tpu-fanout)")
     ap.add_argument("--faults", default="none",
                     help="chaos mode (docs/faults.md): arm this fault "
                          "preset on the spawned server (none, smoke, "

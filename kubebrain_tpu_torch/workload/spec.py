@@ -10,8 +10,8 @@ fully describes how the numbers were produced.
 Counterpart of ``kubebrain_tpu/workload/spec.py``: the traffic fields and
 the factories are the same (so ``generate`` gives the same trace), the
 storage names are the port CLI's (``cuda`` where the JAX package says
-``tpu``), and the multi-device knobs are refused until multi-GPU support
-(ROADMAP item 10), as the port's CLI refuses ``--mesh-part``.
+``tpu``), and the mesh knobs are checked as the port's CLI checks
+``--mesh-part``, ``--scan-partitions`` and ``--mesh-wat``.
 """
 
 from __future__ import annotations
@@ -112,17 +112,18 @@ class WorkloadSpec:
     #: (0 rev = unbounded; ms bound keeps refusals honest under chaos)
     max_staleness_rev: int = 0
     max_staleness_ms: float = 15000.0
-    #: multichip sharded serving (docs/multichip.md): devices on the scan
-    #: mesh's `part` axis / mirror partition count. Refused above 0 until
-    #: multi-GPU support (ROADMAP item 10).
+    #: multichip sharded serving (docs/multichip.md): slots on the scan
+    #: mesh's `part` axis / mirror partition count, forwarded as
+    #: --mesh-part/--scan-partitions. 0 = server defaults. Only meaningful
+    #: with storage="cuda".
     mesh_part: int = 0
     scan_partitions: int = 0
     #: watch fan-out offload (docs/watch.md): spawn every server (leader
     #: AND followers — fan-out capacity scales with replica count) with
     #: --tpu-fanout, i.e. the block-batched device matcher (K4); mesh_wat
-    #: (a watcher table sharded over devices) is refused above 0 until
-    #: ROADMAP item 10. Runtime only — the generated op trace is identical
-    #: either way.
+    #: > 0 additionally shards the watcher table over that many slots
+    #: (forwarded as --mesh-wat). Runtime only — the generated op trace is
+    #: identical either way.
     tpu_fanout: bool = False
     mesh_wat: int = 0
     write_shards: int = 8
@@ -159,16 +160,23 @@ class WorkloadSpec:
             raise ValueError("shard/stream counts must be >= 1")
         if self.controllers_per_node < 1:
             raise ValueError("controllers_per_node must be >= 1")
-        if self.mesh_wat < 0 or self.mesh_part < 0 \
-                or self.scan_partitions < 0:
-            raise ValueError("mesh_part/scan_partitions/mesh_wat must be >= 0")
-        if self.mesh_part or self.scan_partitions or self.mesh_wat:
-            # mirror the port's cli.validate_args, which refuses
-            # --mesh-part/--mesh-wat: fail here instead of spawning a
-            # server that boot-rejects them
+        # the mesh knobs mirror the port's cli.validate_args: fail here
+        # instead of spawning a server that boot-rejects them
+        if self.mesh_wat < 0:
+            raise ValueError("mesh_wat must be >= 0")
+        if self.mesh_wat and not self.tpu_fanout:
+            raise ValueError("mesh_wat requires tpu_fanout=True")
+        if self.mesh_part < 0 or self.scan_partitions < 0:
+            raise ValueError("mesh_part/scan_partitions must be >= 0")
+        if (self.mesh_part or self.scan_partitions) \
+                and self.storage != "cuda":
             raise ValueError(
-                "mesh_part/scan_partitions/mesh_wat need multi-GPU support, "
-                "which is not ported yet (ROADMAP item 10)")
+                "mesh_part/scan_partitions require storage='cuda' (the mesh "
+                "shards the cuda engine's scan mirror)")
+        if self.mesh_part and self.scan_partitions % self.mesh_part:
+            raise ValueError(
+                f"scan_partitions={self.scan_partitions} must be a multiple "
+                f"of mesh_part={self.mesh_part}")
         if self.storage not in STORAGES:
             hint = (" ('tpu' is the JAX package's engine; the port's device "
                     "engine is 'cuda')" if self.storage == "tpu" else "")

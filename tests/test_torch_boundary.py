@@ -20,7 +20,8 @@ from kubebrain_tpu_torch.storage import new_storage
 from kubebrain_tpu_torch.storage.cuda.engine import CudaKvStorage
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "kubebrain_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "kubebrain_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_mesh.py"]
 FORBIDDEN = ("jax", "jaxlib", "kubebrain_tpu", "grpc", "google", "bench")
 #: the etcd3 front and its client side: the only port files that may
 #: import ``grpc`` and ``google.protobuf`` (the card's machine has neither);
@@ -105,6 +106,17 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = _smoke(tmp_path, {"PYTHONPATH": ""})
     assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_mesh_fails_without_two_cards():
+    """The several-card check runs where there are two cards or not at
+    all: here it exits 2 and prints no result line."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA cards are present")
+    out = subprocess.run([sys.executable, "chip_mesh.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "two or more" in out.stderr
     assert '"ok"' not in out.stdout
 
 
@@ -285,6 +297,43 @@ assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
                              "cryptography")) for m in loaded), loaded
 assert "kubebrain_tpu_torch.replica.stream" not in sys.modules
 assert "kubebrain_tpu_torch.client" not in sys.modules
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def test_build_backend_with_a_mesh_runs_without_the_front_dependencies():
+    """With ``grpc``, ``google.protobuf``, ``prometheus_client`` and
+    ``cryptography`` unimportable, ``cli.build_backend`` with ``--mesh-part
+    2 --scan-partitions 4 --mesh-wat 2 --device cpu`` wires a mirror split
+    over two CPU slots and a sharded watcher table, and serves a write and
+    a Range; J6 and the served multichip phase load too."""
+    code = BLOCKER + """
+import chip_smoke
+from kubebrain_tpu_torch import cli
+from kubebrain_tpu_torch.parallel import multihost, served, step  # noqa: F401
+
+backend, store, peers = cli.build_backend(
+    ["--storage", "cuda", "--inner-storage", "memkv", "--device", "cpu",
+     "--single-node", "--identity", "127.0.0.1:2380", "--tpu-fanout",
+     "--mesh-part", "2", "--scan-partitions", "4", "--mesh-wat", "2"],
+    metrics=chip_smoke.RecordingMetrics())
+try:
+    rev = backend._kb_scheduler.create(b"/registry/pods/a/p", b"v")
+    assert [kv.revision for kv in backend._kb_scheduler.list_(
+        b"/registry/pods/", b"/registry/pods0").kvs] == [rev]
+    mirror = backend.scanner._mirror
+    assert len(mirror.shards) == 2 and mirror.partitions == 4
+    assert backend.watcher_hub._fanout_matcher.table.stats()["sharded"]
+finally:
+    backend.close()
+    store.close()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "grpc", "google", "prometheus_client", "cryptography"))
+assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
+                             "cryptography")) for m in loaded), loaded
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -174,6 +174,86 @@ def test_main_path_and_compaction(shims, seed):
     assert all(m["max_abs_err"] == 0 for m in cases.values())
 
 
+def mesh_args(**kw):
+    return types.SimpleNamespace(**{"seed": 0, "watchers": 300,
+                                    "block_events": 64, **kw})
+
+
+def test_mesh_phase(shims):
+    """Phase (l) after (c) on its store, on two CPU slots: the sharded
+    answers equal (c)'s within the pull bound, only dirty slots re-upload,
+    the compacted stores are equal, the sharded fan-out pairs and J6 equal
+    the one-slot results, and every kernel launches under the owner."""
+    store, top = chip_smoke.load_store(2000, 0, CPU)
+    backend = chip_smoke.Backend(store, chip_smoke.BackendConfig())
+    try:
+        chip_smoke.serve_phase(backend, store, top, CPU)
+        out = chip_smoke.mesh_phase(backend, store, top, mesh_args(), CPU,
+                                    n_keys=3000, n_ops=300)
+        # (c)'s store and Backend still serve after (l) closed its own
+        assert backend.count(*chip_smoke.PODS)[0] > 0
+    finally:
+        backend.close()
+        store.close()
+    assert set(out["launches"]) == set(chip_smoke.SOURCES)
+    assert min(out["launches"].values()) > 0
+    assert out["what"] == "two slots of one device (cpu)"
+
+
+def test_every_card_placement(shims, monkeypatch):
+    """``chip_mesh.py``'s (m) on the CPU, the default store placed on two
+    CPU slots in place of two cards: it serves (c)'s requests like the
+    one-slot store and compacts to an equal store, K3 once per slot."""
+    import chip_mesh
+
+    real = chip_mesh.new_storage
+
+    def placed(kind, **kw):
+        if "device" not in kw:  # the engine's default: here two CPU slots
+            kw["mesh"] = [CPU, CPU]
+        return real(kind, **kw)
+
+    monkeypatch.setattr(chip_smoke, "CARD", "cpu")
+    monkeypatch.setattr(chip_mesh, "new_storage", placed)
+    out = chip_mesh.every_card(3000, 0, [CPU, CPU])
+    assert out["slots"] == 2 and out["rows"] > 0
+    assert out["launches"]["victim_mask"] % 2 == 0
+    assert out["launches"]["victim_mask"] > 0
+    with pytest.raises(AssertionError, match=r"\(m\) the default"):
+        chip_mesh.every_card(300, 0, [CPU])
+
+
+def test_mesh_phase_catches_a_wrong_slot(shims, monkeypatch):
+    """A K1 that drops the visible rows of the second slot's first
+    partition fails (l1)'s comparison with (c)'s answers: the check has
+    teeth."""
+    store, top = chip_smoke.load_store(2000, 0, CPU)
+    backend = chip_smoke.Backend(store, chip_smoke.BackendConfig())
+    real = scan_kernels.scan.visibility_mask
+
+    def wrong(keys_t, revs, tomb, nv, starts, ends, unb, rrevs):
+        mask = real(keys_t, revs, tomb, nv, starts, ends, unb, rrevs)
+        if int(nv[0]) == int(store_nv[2]):
+            mask[..., 0, :] = False
+        return mask
+
+    try:
+        chip_smoke.serve_phase(backend, store, top, CPU)
+        sharded = chip_smoke.CudaKvStorage(store.untracked(), mesh=[CPU, CPU],
+                                           partitions=4)
+        sc = sharded.make_scanner(get_compact_revision=lambda _s: 0)
+        sc.publish()
+        store_nv = sc._mirror.n_valid.tolist()
+        sc.close()
+        monkeypatch.setattr(scan_kernels, "scan", types.SimpleNamespace(
+            visibility_mask=wrong))
+        with pytest.raises(AssertionError, match=r"\(l1\)"):
+            chip_smoke.mesh_reads(backend, store, top, [CPU, CPU])
+    finally:
+        backend.close()
+        store.close()
+
+
 @pytest.mark.parametrize("encoded", [False, True], ids=["raw", "encoded"])
 def test_edge_queries_land_on_block_edges(shims, encoded):
     """The edge queries of phase (b) start and end at the keys of the rows

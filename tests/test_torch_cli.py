@@ -1,7 +1,8 @@
 """The port's CLI (``kubebrain_tpu_torch/cli.py``): its wiring of the
-``cuda`` engine, the engine hooks and the fan-out matchers, the flags it
-refuses until their modules are ported, the follower role and its flags, the device default, and a kept
-divergence from the JAX CLI, which cannot start ``tpu`` over native."""
+``cuda`` engine, the engine hooks and the fan-out matchers, the mesh flags,
+the flags it refuses until their modules are ported, the follower role and
+its flags, the device default, and a kept divergence from the JAX CLI,
+which cannot start ``tpu`` over native."""
 
 import subprocess
 import sys
@@ -140,14 +141,35 @@ def test_peers_follow_single_node():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--mesh-part", "2"), "ROADMAP item 10"),
-    (("--mesh-wat", "2", "--tpu-fanout"), "ROADMAP item 10"),
     (("--aio-port", "23790"), "ROADMAP item 9"),
     (("--front-port", "23791"), "ROADMAP item 9"),
 ])
 def test_unported_flags_raise(flags, item):
     with pytest.raises(SystemExit, match=item):
         cli.build_backend([*CUDA_ON_CPU, *flags], metrics=NoopMetrics())
+
+
+@pytest.mark.parametrize("flags", [
+    ("--mesh-part", "2"), ("--mesh-wat", "2", "--tpu-fanout"),
+], ids=["mesh_part", "mesh_wat"])
+def test_mesh_flags_boot_a_sharded_backend(flags):
+    """``--mesh-part 2`` splits the mirror over two CPU slots (one
+    partition each) and ``--mesh-wat 2`` the watcher table, which the
+    ``kb.fanout.sharded`` gauge then reports; a write and a Range are
+    served either way."""
+    with Booted(*CUDA_ON_CPU, *flags) as b:
+        rev = b.backend.create(b"/registry/pods/a/p", b"v")
+        assert [kv.revision for kv in b.backend.list_(
+            b"/registry/pods/", b"/registry/pods0").kvs] == [rev]
+        mirror = b.backend.scanner._mirror
+        matcher = b.backend.watcher_hub._fanout_matcher
+        if flags[0] == "--mesh-part":
+            assert len(mirror.shards) == 2 and mirror.partitions == 2
+            assert matcher is None
+        else:
+            assert len(mirror.shards) == 1
+            assert matcher.table.stats()["sharded"] is True
+            assert matcher.table.stats()["devices"] == 2
 
 
 FOLLOWER = ("--role", "follower", "--leader-address", "127.0.0.1:2379",

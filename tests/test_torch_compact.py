@@ -565,7 +565,8 @@ def test_compact_dirty_partition_only_republish():
         assert wait_for_revision(b, r)
         sc.publish()
         m0 = sc._mirror
-        old = [t.clone() for t in (m0.keys_dev, m0.revs_dev, m0.tomb_dev)]
+        (sh0,) = m0.shards
+        old = [t.clone() for t in (sh0.keys, sh0.revs, sh0.tomb)]
         uploads = []
         orig = tblocks.prepare_layout
 
@@ -578,9 +579,9 @@ def test_compact_dirty_partition_only_republish():
         m1 = sc._mirror
         assert m1 is not m0 and uploads == [1], uploads
         dirty = [p for p in range(4)
-                 if not torch.equal(m1.revs_dev[p], m0.revs_dev[p])]
+                 if not torch.equal(m1.shards[0].revs[p], m0.shards[0].revs[p])]
         assert dirty == [3]
-        for before, now in zip(old, (m0.keys_dev, m0.revs_dev, m0.tomb_dev)):
+        for before, now in zip(old, (sh0.keys, sh0.revs, sh0.tomb)):
             assert torch.equal(before, now)
         res = b.list_(b"/registry/ds/", b"/registry/ds0").kvs
         assert len(res) == 401 and res[-1].value == b"v6"
@@ -844,13 +845,14 @@ def test_pull_victim_indices_branches(shape):
     sc = teng.TorchScanner(t_new_storage("memkv"),
                            get_compact_revision=lambda _s: 0, device="cpu")
     try:
-        fake = mock.Mock(n_valid=nv, n_valid_dev=torch.from_numpy(nv))
+        fake = mock.Mock(n_valid=nv)
         counts = torch.from_numpy(mask.sum(axis=1).astype(np.int32))
         pulls = []
         real = teng._host_pull
         with mock.patch.object(teng, "_host_pull",
                                lambda x: pulls.append(tuple(x.shape)) or real(x)):
-            got = sc._pull_victim_indices(torch.from_numpy(mask), counts, fake)
+            got = sc._pull_victim_indices([torch.from_numpy(mask)], [counts],
+                                          fake)
         assert sorted(got) == [0, 2]
         for p in (0, 2):
             assert (got[p] == np.nonzero(mask[p])[0]).all()

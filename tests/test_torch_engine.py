@@ -253,8 +253,8 @@ def test_mirror_from_reference_scans_identically(encode):
             for rev in (head, head // 2):
                 j_mask, j_counts = jb.scanner._dev_mask(jm, s, e, rev)
                 t_mask, t_counts = ts._dev_mask(tm, s, e, rev)
-                assert (t_mask.numpy() == np.asarray(j_mask)).all()
-                assert (t_counts.numpy() == np.asarray(j_counts)).all()
+                assert (t_mask[0].numpy() == np.asarray(j_mask)).all()
+                assert (t_counts[0].numpy() == np.asarray(j_counts)).all()
                 _, j_idx = jb.scanner._dev_visible_indices(j_mask, j_counts, n_rows)
                 _, t_idx = ts._dev_visible_indices(t_mask, t_counts, n_rows)
                 assert (t_idx == j_idx).all()
@@ -336,5 +336,6 @@ def test_build_mirror_host_arrays_match_reference(encode, n_parts):
         assert (getattr(jm, f) == getattr(tm, f)).all(), f
     for a, b in zip(jm.val_arena + jm.val_offsets, tm.val_arena + tm.val_offsets):
         assert (a == b).all()
-    assert tm.keys_dev.shape == (n_parts, tm.keys_host.shape[2], tm.keys_host.shape[1])
-    assert tm.revs_dev.dtype == torch.int64 and tm.tomb_dev.dtype == torch.int8
+    (sh,) = tm.shards
+    assert sh.keys.shape == (n_parts, tm.keys_host.shape[2], tm.keys_host.shape[1])
+    assert sh.revs.dtype == torch.int64 and sh.tomb.dtype == torch.int8

@@ -227,8 +227,8 @@ def test_register_metrics_gauges_then_unregistered_at_close(encode):
         assert dev_tags == (("device", "cpu"),)
         raw = reg.sample("kb.mirror.raw.bytes")[dev_tags]
         m = b.scanner._mirror
-        want = sum(t.numel() * t.element_size() for t in (
-            m.keys_dev, m.revs_dev, m.tomb_dev, m.ttl_dev, m.n_valid_dev))
+        want = sum(t.numel() * t.element_size() for sh in m.shards
+                   for t in (sh.keys, sh.revs, sh.tomb, sh.ttl, sh.n_valid))
         assert stored == want
         assert (raw > stored) if encode else (raw == stored)
         sc = b.scanner

@@ -29,6 +29,13 @@ from kubebrain_tpu_torch.ops import scan as tscan
 
 
 
+def one_slot_view(table) -> tuple:
+    """A one-slot table's published ``(starts, ends, unbounded, min_rev,
+    index, wids, version)``."""
+    (shard,), wids, version = table.shard_views()
+    return (*shard[1:], wids, version)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The tensors here are small: one intra-op thread, so that the test
@@ -323,9 +330,9 @@ def test_edge_case_freed_slots_after_churn():
     port = DeviceFanout(device="cpu")
     port.deliver([WatchEvent(revision=r, key=k) for r, k in events], specs, 1)
     kept = specs[::3]
-    _ws, _we, _wu, _wr, wids, _v = port.table.device_view()
+    _ws, _we, _wu, _wr, _index, wids, _v = one_slot_view(port.table)
     port.table.sync(kept, version=2)
-    ws, we, wu, wr, wids, _v = port.table.device_view()
+    ws, we, wu, wr, _index, wids, _v = one_slot_view(port.table)
     freed = [slot for slot in range(len(wids)) if wids[slot] < 0]
     assert len(freed) == len(wids) - len(kept)
     ek = torch.from_numpy(tscan.flip_sign(

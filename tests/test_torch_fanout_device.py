@@ -9,7 +9,8 @@ matcher), plus a three-way differential against the JAX ``DeviceFanout``.
 The JAX tests that need a multi-device mesh
 (``test_sharded_wat_table_byte_identical``,
 ``test_table_capacity_rounds_to_device_multiple``,
-``test_matcher_with_sharded_watcher_table``) wait for multi-GPU support."""
+``test_matcher_with_sharded_watcher_table``) have their counterparts over
+CPU slot meshes in ``tests/test_torch_multichip.py``."""
 
 import queue
 import sys
@@ -37,6 +38,13 @@ from kubebrain_tpu_torch.fanout.table import MIN_WIDTH, WatcherTable  # noqa: E4
 from kubebrain_tpu_torch.ops import fanout as fanout_ops  # noqa: E402
 from kubebrain_tpu_torch.ops import fanout_kernels  # noqa: E402
 from kubebrain_tpu_torch.ops.fanout import FanoutMatcher, compact_flat  # noqa: E402
+
+
+def one_slot_view(table) -> tuple:
+    """A one-slot table's published ``(starts, ends, unbounded, min_rev,
+    index, wids, version)``."""
+    (shard,), wids, version = table.shard_views()
+    return (*shard[1:], wids, version)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,15 +242,18 @@ class _GaugeRecorder:
 
 @pytest.mark.parametrize("cls", [DeviceFanout, FanoutMatcher])
 def test_fanout_sharded_gauge(cls):
-    """kb.fanout.sharded reads 0: the port's watcher table lives on one
-    device, and the legacy matcher refuses a mesh until multi-GPU."""
-    rec = _GaugeRecorder()
-    cls(device="cpu").set_metrics(rec)
-    assert rec.gauges["kb.fanout.sharded"] == 0.0
-    assert rec.fns["kb.fanout.sharded"]() == 0.0
-    if cls is FanoutMatcher:
-        with pytest.raises(NotImplementedError):
-            FanoutMatcher(mesh=object(), device="cpu")
+    """kb.fanout.sharded is 1 only when the table is really split: over a
+    ``wat`` mesh of 8 CPU slots, not without a mesh nor over one slot
+    (``tests/test_fanout_device.py:226``)."""
+    from kubebrain_tpu_torch.parallel.mesh import make_mesh
+
+    for mesh, want in ((None, 0.0),
+                       (make_mesh(8, axes=("wat",), device="cpu"), 1.0),
+                       (make_mesh(1, axes=("wat",), device="cpu"), 0.0)):
+        rec = _GaugeRecorder()
+        cls(device="cpu", mesh=mesh).set_metrics(rec)
+        assert rec.gauges["kb.fanout.sharded"] == want
+        assert rec.fns["kb.fanout.sharded"]() == want
 
 
 def test_matchers_without_a_card_raise(monkeypatch):
@@ -300,20 +311,20 @@ def test_table_publishes_dirty_rows_only():
     t = WatcherTable(device="cpu")
     specs = _population(rng, 50)
     t.sync(specs, version=1)
-    first = t.device_view()
+    first = one_slot_view(t)
     epoch = t.stats()["epoch"]
     churned = specs[5:] + _population(rng, 3, wid0=900)
     t.sync(churned, version=2)
     assert 0 < t.stats()["dirty"] < len(churned)
-    view = t.device_view()
+    view = one_slot_view(t)
     assert t.stats()["epoch"] == epoch and t.stats()["dirty"] == 0
     assert all(a is b for a, b in zip(view[:4], first[:4]))  # in place
     full = WatcherTable(device="cpu")
     full.sync(churned, version=2)
-    want = full.device_view()
-    order = np.argsort(view[4])
-    want_order = np.argsort(want[4])
-    assert (view[4][order] == want[4][want_order]).all()
+    want = one_slot_view(full)
+    order = np.argsort(view[5])
+    want_order = np.argsort(want[5])
+    assert (view[5][order] == want[5][want_order]).all()
     for got_col, want_col in zip(view[:4], want[:4]):
         assert torch.equal(got_col[order], want_col[want_order])
 
@@ -367,7 +378,7 @@ def test_hub_splits_a_block_past_the_int32_flat_index(monkeypatch, n_events):
     events = _events(rng, n_events, rev0=50)
     cols = WatcherTable(device="cpu")
     cols.sync(specs, version=1)
-    ws, we, wu, wr, _wids, _v = cols.device_view()
+    ws, we, wu, wr, _index, _wids, _v = one_slot_view(cols)
     ek = torch.zeros((512, ws.shape[1]), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32 flat index"):
         fanout_kernels.fanout_dispatch(ek, torch.zeros(512, dtype=torch.int64),

@@ -40,6 +40,13 @@ CHUNKS = [1, 2, 4, 8, 16, 64]
 ALPHABET = b"/ab\x01\xff"
 
 
+def one_slot_view(table) -> tuple:
+    """A one-slot table's published ``(starts, ends, unbounded, min_rev,
+    index, wids, version)``."""
+    (shard,), wids, version = table.shard_views()
+    return (*shard[1:], wids, version)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Small tensors: one intra-op thread, so that the test run's parallel
@@ -394,10 +401,11 @@ def index_fits(table) -> tfanout.RankIndex:
     """The table's rank index names each slot's own bound rows, its rows
     are sorted and distinct, and the table's host copy of them is theirs;
     returns it."""
-    ws, we, _u, _r, index, _wids, _v = table.ranked_view()
+    ws, we, _u, _r, index, _wids, _v = one_slot_view(table)
     rows = [tuple(r) for r in index.rows.tolist()]
     assert rows == sorted(set(rows))
-    assert (table._index_keys == tfanout.row_keys(index.rows.numpy())).all()
+    assert (table._shards[0].index_keys
+            == tfanout.row_keys(index.rows.numpy())).all()
     assert torch.equal(index.rows[index.rs.long()], ws)
     assert torch.equal(index.rows[index.re.long()], we)
     return index
@@ -416,7 +424,7 @@ def test_matcher_keeps_the_index_with_the_table(change):
     assert _revs(port.deliver(_events(keys), specs, 1)) == _want(
         _events(keys), specs)
     stats0 = port.table.stats()
-    view0 = port.table.ranked_view()[4]
+    view0 = one_slot_view(port.table)[4]
     if change == "churn":
         specs = specs[::2] + _kube_specs(rng, 10, wid0=500)
     elif change == "width":
@@ -430,7 +438,7 @@ def test_matcher_keeps_the_index_with_the_table(change):
     assert stats["index_updates"] == stats0["index_updates"] + (not rebuilt)
     index = index_fits(port.table)
     assert index is not view0
-    ws, we = port.table.device_view()[:2]
+    ws, we = one_slot_view(port.table)[:2]
     fresh = tfanout.rank_index_plain(ws, we)
     if rebuilt:
         assert all(torch.equal(a, b) for a, b in zip(index, fresh))
@@ -449,7 +457,7 @@ def test_matcher_keeps_the_index_with_the_table(change):
     assert _revs(jgot) == want
     # an unchanged table publishes nothing and keeps its index
     port.deliver(_events(keys), specs, 2)
-    assert port.table.ranked_view()[4] is index
+    assert one_slot_view(port.table)[4] is index
 
 
 # ------------------------------------------------- the index under churn
@@ -540,7 +548,7 @@ def test_table_index_under_random_churn(width):
         events = _events(keys, rev0=0)
         got = port.deliver(events, specs, step)
         assert _revs(got) == _want(events, specs)
-        ws, we, wu, wr = port.table.device_view()[:4]
+        ws, we, wu, wr = one_slot_view(port.table)[:4]
         case = Case(specs, keys, [ev.revision for ev in events], width)
         ek = case.ev[0]
         er = case.ev[1]
@@ -562,11 +570,11 @@ def test_a_min_rev_change_leaves_the_index():
     stats = table.stats()
     specs = [(w, s, e, r + 7) for w, s, e, r in specs]
     table.sync(specs, version=2)
-    assert table.ranked_view()[4] is index
+    assert one_slot_view(table)[4] is index
     after = table.stats()
     assert after["index_updates"] == stats["index_updates"]
     assert after["index_builds"] == stats["index_builds"]
-    assert table.device_view()[3].tolist()[:40] == [r for *_x, r in specs]
+    assert one_slot_view(table)[3].tolist()[:40] == [r for *_x, r in specs]
 
 
 def test_the_index_is_rebuilt_past_its_slack():
@@ -628,13 +636,13 @@ def test_legacy_matcher_over_the_index():
         got = port(_events(keys), specs, version=version)
         assert (got == match_oracle(_events(keys), specs)).all()
         assert (got == np.asarray(jmatcher(_jevents(keys), specs))).all()
-        ws, we = port._cached[:2]
+        (ws, we, *_cols), index = port._shards[0]
         assert all(torch.equal(a, b) for a, b in zip(
-            port._index, tfanout.rank_index_plain(ws, we)))
-        first = port._index
+            index, tfanout.rank_index_plain(ws, we)))
+        first = index
         specs = specs[1:] + _kube_specs(rng, 3, wid0=900 + version)
     port(_events(keys), specs, version=3)
-    assert port._index is not first
+    assert port._shards[0][1] is not first
 
 
 # --------------------------------------------------------------- property

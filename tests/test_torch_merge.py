@@ -72,10 +72,11 @@ def assert_same_mirror(jm, tm):
     assert jm.max_rev == tm.max_rev
     # the device columns are the host columns in the kernel layout
     kt, rv, t8 = tscan.prepare_layout(tm.keys_host, tm.revs_host, tm.tomb_host)
-    assert (tm.keys_dev.numpy() == kt).all() and (tm.revs_dev.numpy() == rv).all()
-    assert (tm.tomb_dev.numpy() == t8).all()
-    assert (tm.ttl_dev.numpy() == tm.ttl_host).all()
-    assert (tm.n_valid_dev.numpy() == tm.n_valid).all()
+    (sh,) = tm.shards
+    assert (sh.keys.numpy() == kt).all() and (sh.revs.numpy() == rv).all()
+    assert (sh.tomb.numpy() == t8).all()
+    assert (sh.ttl.numpy() == tm.ttl_host).all()
+    assert (sh.n_valid.numpy() == tm.n_valid).all()
 
 
 def sealed(delta_cls, rows, encoding, seal_rows=7):
@@ -114,7 +115,8 @@ def test_merge_partitions_stored_matches_reference(encode, n_parts, delta_n):
     capacity and take the memcpy grow path."""
     base = version_rows(4, 300)
     jm, tm = mirrors(base, n_parts, encode)
-    old = [t.clone() for t in (tm.keys_dev, tm.revs_dev, tm.tomb_dev, tm.ttl_dev)]
+    (sh,) = tm.shards
+    old = [t.clone() for t in (sh.keys, sh.revs, sh.tomb, sh.ttl)]
     rows = version_rows(5, delta_n, rev0=300, keyspace=400)
     j_d7 = jblocks.merge_sorted_stored(
         sealed(JDelta, rows, jm.encoding).snapshot_blocks()[0])
@@ -127,7 +129,7 @@ def test_merge_partitions_stored_matches_reference(encode, n_parts, delta_n):
     grew = tm2.keys_host.shape[1] > tm.keys_host.shape[1]
     assert grew == (delta_n >= 300)
     assert tm2.encoding is tm.encoding and tm2.snapshot_ts == 9
-    for before, now in zip(old, (tm.keys_dev, tm.revs_dev, tm.tomb_dev, tm.ttl_dev)):
+    for before, now in zip(old, (sh.keys, sh.revs, sh.tomb, sh.ttl)):
         assert torch.equal(before, now)   # readers' mirror untouched
 
 
@@ -164,7 +166,7 @@ def test_compact_partitions_stored_matches_reference(encode):
     jm2 = jblocks.compact_partitions_stored(jm, keep, None, 11)
     tm2 = tblocks.compact_partitions_stored(tm, keep, 11)
     assert_same_mirror(jm2, tm2)
-    assert torch.equal(tm2.keys_dev[1], tm.keys_dev[1])
+    assert torch.equal(tm2.shards[0].keys[1], tm.shards[0].keys[1])
     assert tblocks.compact_partitions_stored(tm, {}, 11) is tm
 
 
@@ -176,13 +178,14 @@ def test_republish_uploads_dirty_partitions_only():
     real = tblocks.prepare_layout
     with mock.patch.object(tblocks, "prepare_layout",
                            lambda *a: calls.append(a[0].shape) or real(*a)):
-        cols = tblocks._republish(tm, keys_h, tm.revs_host, tm.tomb_host,
-                                  tm.ttl_host, tm.n_valid, {1})
+        shards = tblocks._republish(tm, keys_h, tm.revs_host, tm.tomb_host,
+                                    tm.ttl_host, tm.n_valid, {1})
     assert calls == [(1, *keys_h.shape[1:])]
     kt = real(keys_h, tm.revs_host, tm.tomb_host)[0]
-    assert (cols[0].numpy() == kt).all()
-    assert cols[0].data_ptr() != tm.keys_dev.data_ptr()
-    assert not torch.equal(cols[0][1], tm.keys_dev[1])
+    keys = shards[0].keys
+    assert (keys.numpy() == kt).all()
+    assert keys.data_ptr() != tm.shards[0].keys.data_ptr()
+    assert not torch.equal(keys[1], tm.shards[0].keys[1])
 
 
 # ---------------------------------------------------------------- engine

@@ -52,9 +52,10 @@ def strictly_sorted(keys_t: np.ndarray, revs: np.ndarray, nv: int) -> bool:
 
 
 def assert_kernel_precondition(mirror):
-    keys = mirror.keys_dev.numpy()
-    revs = mirror.revs_dev.numpy()
-    nv = mirror.n_valid_dev.numpy()
+    (sh,) = mirror.shards
+    keys = sh.keys.numpy()
+    revs = sh.revs.numpy()
+    nv = sh.n_valid.numpy()
     assert (nv == mirror.n_valid).all()
     edges = []
     for p in range(keys.shape[0]):
@@ -71,12 +72,13 @@ def assert_blocked_mask_exact(mirror):
     """On the engine's own mirror, the kernel's block-classified mask is the
     plain mask for a namespace query, a whole-prefix query at an older
     revision and an unbounded one."""
-    top = int(mirror.revs_dev.max()) if mirror.rows else 1
+    (sh,) = mirror.shards
+    top = int(sh.revs.max()) if mirror.rows else 1
     specs = [(b"/registry/pods/ns-1/", b"/registry/pods/ns-10", top),
              (b"/registry/", b"/registry0", max(1, top // 2)),
              (b"/registry/pods/ns-2/p", b"", top)]
-    args = (mirror.keys_dev, mirror.revs_dev, mirror.tomb_dev,
-            mirror.n_valid_dev, *port_query_tensors(mirror, specs))
+    args = (sh.keys, sh.revs, sh.tomb, sh.n_valid,
+            *port_query_tensors(mirror, specs))
     want = tscan.visibility_mask(*args)
     assert torch.equal(tscan.visibility_mask_blocked(*args), want)
     assert want.any()

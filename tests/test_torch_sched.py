@@ -28,6 +28,7 @@ from kubebrain_tpu.parallel.mesh import make_mesh
 from kubebrain_tpu.storage import new_storage as j_new_storage
 from kubebrain_tpu_torch.backend import Backend, BackendConfig
 from kubebrain_tpu_torch.backend.errors import CompactedError
+from kubebrain_tpu_torch.parallel.mesh import make_mesh as t_make_mesh
 from kubebrain_tpu_torch.sched import (
     Lane,
     RequestScheduler,
@@ -53,10 +54,12 @@ def _kvs(kvs):
     return [(kv.key, kv.value, kv.revision) for kv in kvs]
 
 
-def _cuda_backend(host_limit_threshold=0, merge_threshold=10 ** 9):
+def _cuda_backend(host_limit_threshold=0, merge_threshold=10 ** 9,
+                  mesh=None):
     """The port's ``cuda`` engine over memkv on the CPU: the device path
-    for every unpaged read, the delta kept as a live overlay."""
-    store = new_storage("cuda", inner="memkv", device="cpu")
+    for every unpaged read, the delta kept as a live overlay; ``mesh``
+    splits its mirror over CPU slots."""
+    store = new_storage("cuda", inner="memkv", device="cpu", mesh=mesh)
     backend = Backend(store, BackendConfig(event_ring_capacity=8192,
                                            watch_cache_capacity=4096))
     backend.scanner._host_limit_threshold = host_limit_threshold
@@ -570,6 +573,35 @@ def test_batched_plain_k2_matches_jax_pallas_interpret():
     every-device mesh: the same ``scan_batch`` answers on the same op
     sequence."""
     store, backend = _cuda_backend()
+    jstore, jbackend = _tpu_backend(n_devices=None,
+                                    scan_kernel="pallas_interpret")
+    try:
+        for b in (backend, jbackend):
+            _populate(b, random.Random(3), n_keys=24, n_ops=30)
+            b.scanner.publish()
+        head = backend.current_revision()
+        assert jbackend.current_revision() == head
+        specs = [
+            ("range", b"/registry/", b"/registry0", head, 0),
+            ("count", b"/registry/", b"/registry0", head),
+            ("range", b"/registry/pods/", b"/registry/pods0", head, 10),
+        ]
+        got = backend.scanner.scan_batch(specs)
+        assert _scan_results(got) == \
+            _scan_results(jbackend.scanner.scan_batch(specs))
+        assert got[1] == len(got[0][0]) > 0
+    finally:
+        backend.close()
+        store.close()
+        jbackend.close()
+        jstore.close()
+
+
+def test_batched_plain_k2_over_a_port_mesh_matches_jax_pallas_interpret():
+    """The same, with the port's mirror split over 8 CPU slots as the JAX
+    engine's is over its 8 devices: one K2 call per slot, the same
+    ``scan_batch`` answers."""
+    store, backend = _cuda_backend(mesh=t_make_mesh(8, device="cpu"))
     jstore, jbackend = _tpu_backend(n_devices=None,
                                     scan_kernel="pallas_interpret")
     try:

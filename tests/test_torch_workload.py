@@ -9,8 +9,8 @@ port's CLI on the CPU, ``--device cpu``, and the port's client), plus
   module's on the same inputs;
 - ``for_smoke`` replayed by both runners (the JAX CLI and the port's, both
   on the CPU): equal sha256, equal counts per op kind, both reports green;
-- ``spec.validate`` refusing the multi-device knobs (ROADMAP item 10) and
-  the JAX engine's name ``tpu``.
+- ``spec.validate`` taking the mesh knobs over ``cuda`` only, as the
+  port's CLI does, and refusing the JAX engine's name ``tpu``.
 """
 
 import copy
@@ -137,16 +137,28 @@ def test_cluster_trace_is_the_known_one():
     {"scan_partitions": 4}, {"storage": "tpu"},
 ], ids=["mesh_part", "mesh_wat", "scan_partitions", "storage_tpu"])
 def test_spec_refuses_what_the_port_cannot_serve(override):
+    """The JAX engine's name is refused; ``mesh_part`` and
+    ``scan_partitions`` are refused on an engine without a mirror
+    (``memkv``, the smoke default) and taken over ``cuda``; ``mesh_wat`` is
+    refused without ``tpu_fanout``. A mesh knob changes no op of the
+    generated trace."""
     spec = WorkloadSpec.for_smoke(4, **override)
-    with pytest.raises(ValueError) as e:
-        spec.validate()
-    if "storage" in override:
-        assert "'cuda'" in str(e.value)
+    if "mesh_wat" in override:
+        spec.validate()  # any engine: the watcher table is the matcher's
+        bad = WorkloadSpec.for_smoke(4, mesh_wat=2)
+        with pytest.raises(ValueError, match="tpu_fanout"):
+            bad.validate()
     else:
-        assert "ROADMAP item 10" in str(e.value)
+        with pytest.raises(ValueError, match="'cuda'"):
+            spec.validate()
+        bad = spec
     with pytest.raises(ValueError):
-        generator.generate(spec)
-    WorkloadSpec.for_smoke(4, storage="cuda").validate()
+        generator.generate(bad)
+    if "storage" not in override:
+        on_cuda = WorkloadSpec.for_smoke(4, **{"storage": "cuda", **override})
+        on_cuda.validate()
+        assert generator.generate(on_cuda).sha256() == generator.generate(
+            WorkloadSpec.for_smoke(4, storage="cuda")).sha256()
 
 
 # ------------------------------------------------------------- SLO helpers
