@@ -49,7 +49,23 @@ result line):
     merge may have failed and no read
     may have left the device (the engine's error, retry, escalation,
     degraded-seconds and background-rebuild counters all stay 0).
-(l) the device mesh, right after (c) in its process: two slots, on two
+(n) the device programs no serving path calls (ROADMAP item 11: plain
+    PyTorch, no kernel), right after (c) on its mirror, each partition one
+    block: ``count_visible`` and ``visible_mask`` for each query of (c)'s
+    request batch, equal to K1's counts and mask bit for bit;
+    ``visible_indices`` of each mask, equal to J1's indices;
+    ``point_lookup`` of ``PROGRAM_LOOKUPS`` (1,000) dataset keys drawn with
+    ``--seed`` and ``PROGRAM_ABSENT`` (16) absent ones, at the top revision
+    and half of it, equal to the host store's latest version (revision,
+    tombstone; the row holding it; row 0's fields where nothing is found);
+    ``compact_block`` with K3's victim mask at (e)'s compaction revision
+    (count = N - victims, rows equal to its run on a CPU copy);
+    ``fanout_mask`` on (f)'s population of ``PROGRAM_WATCHERS`` (10,000, 100
+    broad) written as prefixes x a ``PROGRAM_EVENTS`` (512) block, equal to
+    its CPU run, and to K5's mask on the watchers whose range is their
+    prefix. Each program's time (CUDA events) is printed with the card's
+    name and power limit. Its kernel launches are not the path's.
+(l) the device mesh, right after (n) in its process: two slots, on two
     cards where the machine has them, else two slots of ``cuda:0`` (which
     run back to back on its stream: no speed is read from them). (l1) a
     second ``CudaKvStorage`` with 4 partitions over the two slots on (c)'s
@@ -161,8 +177,9 @@ result line):
     plane's injected counts, quarantines, degraded seconds and rebuilds are
     printed.
     (g) and (h) share no state with the other phases: a second process
-    runs them, started after (d), while this one runs (c), (e) and (f),
-    and a third (i), (j) and (k); their lines come as they are printed.
+    runs them, started after (d), while this one runs (c), (n), (l), (e)
+    and (f), and a third (i), (j) and (k); their lines come as they are
+    printed.
 (i) scheduled serving over native: (c)'s dataset loaded into native's
     data dir, which is then closed and booted by the port's CLI:
     ``kubebrain_tpu_torch.cli.build_backend`` with ``CLI_FLAGS`` (``cuda``
@@ -1419,6 +1436,224 @@ def compact_phase(backend, store, top: int, n_keys: int, dev,
         oracle.close()
         twin_backend.close()
         twin.close()
+
+
+# ------------------------------------------------------------------ phase n
+#: (n): keys of the dataset looked up one by one, and keys it lacks
+PROGRAM_LOOKUPS = 1000
+PROGRAM_ABSENT = 16
+#: (n): (f)'s population written as prefixes, and the block they match
+PROGRAM_WATCHERS = 10_000
+PROGRAM_BROAD = 100
+PROGRAM_EVENTS = 512
+
+
+def dataset_keys(n_keys: int) -> list[bytes]:
+    """The user keys of :func:`kube_dataset` (``n_keys``), in its order."""
+    n_events = n_keys // 4
+    return ([b"/events/ns%02d/ev-%06d" % (i % 20, i) for i in range(n_events)]
+            + [b"/registry/pods/ns%02d/pod-%06d" % (i % 32, i)
+               for i in range(n_keys - n_events)])
+
+
+def probe_row(mirror, key: bytes, dev) -> torch.Tensor:
+    """``key`` as one flipped int32[C] row in the mirror's compare domain
+    (encoded like its stored keys where the mirror is encoded)."""
+    u8 = np.zeros((1, mirror.raw_key_width), np.uint8)
+    u8[0, : len(key)] = np.frombuffer(key, np.uint8)
+    if mirror.encoding is not None:
+        u8, _ = mirror.encoding.encode_keys(u8, np.array([len(key)]))
+    return flipped(keyops.bytes_to_chunks(u8)[0], dev)
+
+
+def store_answer(inner, key: bytes, read_rev: int) -> tuple:
+    """The latest version of ``key`` at or below ``read_rev`` in the host
+    store: (found, revision, tombstone)."""
+    lo, hi = coder.internal_range(key, key + b"\0")
+    best = None
+    for ikey, value in inner.iter(lo, hi):
+        ukey, rev = coder.decode(ikey)
+        if ukey == key and 0 < rev <= read_rev and (best is None
+                                                    or rev > best[0]):
+            best = (rev, value == TOMBSTONE)
+    return (False, None, None) if best is None else (True, *best)
+
+
+def program_line(name: str, what: str, ms: float, smi: str) -> None:
+    log(f"program {name} [{what}]: {ms} ms per call (CUDA events, calls "
+        f"back to back), plain PyTorch, no kernel; card {smi}")
+
+
+def programs_phase(backend, store, top: int, n_keys: int, seed: int, dev,
+                   smi: str, n_lookups: int = PROGRAM_LOOKUPS,
+                   n_watchers: int = PROGRAM_WATCHERS,
+                   n_broad: int = PROGRAM_BROAD,
+                   n_events: int = PROGRAM_EVENTS) -> dict:
+    """(n): the device programs no serving path calls (``ops/scan.py``
+    ``count_visible``, ``visible_mask``, ``visible_indices``,
+    ``point_lookup``; ``ops/compact.py::compact_block``;
+    ``ops/fanout.py::fanout_mask``) on (c)'s mirror, each partition one
+    block, held against the kernels of the path and the host store.
+    Raises at the first mismatch; returns each program's time (ms)."""
+    scanner = backend.scanner
+    mirror = scanner._mirror
+    (sh,) = mirror.shards  # (c)'s store is on one card (CARD)
+    keys_t, revs, tomb, nv = sh.keys, sh.revs, sh.tomb, sh.n_valid
+    p_n, c, n = keys_t.shape
+    out = {}
+
+    # count_visible / visible_mask per (c) query and partition against K1,
+    # visible_indices against J1 on K1's mask
+    def block_args(spec, p: int = 0) -> tuple:
+        """One query's arguments of the one-block programs, partition p."""
+        q = query_tensors(mirror.encoding, mirror.key_width, [spec], dev)
+        return (keys_t[p], revs[p], tomb[p], nv[p], *[t[0] for t in q])
+
+    queries = [(q[1], q[2], (q[3] or top)) for q in request_batch(top)]
+    for spec in queries:
+        starts, ends, unb, rrevs = query_tensors(
+            mirror.encoding, mirror.key_width, [spec], dev)
+        k1_mask, k1_counts = scan_kernels.visibility_mask_batch(
+            keys_t, revs, tomb, nv, starts[0], ends[0], unb, rrevs)
+        size = fanout.pow2_at_least(max(1, int(k1_counts.max())))
+        j1 = _part_indices_of_mask(k1_mask, size)
+        for p in range(p_n):
+            args = block_args(spec, p)
+            mask = scan.visible_mask(*args)
+            if not torch.equal(mask, k1_mask[p]):
+                raise AssertionError(f"(n) visible_mask differs from K1 on "
+                                     f"{spec[:2]} partition {p}")
+            if int(scan.count_visible(*args)) != int(k1_counts[p]):
+                raise AssertionError(f"(n) count_visible differs from K1 on "
+                                     f"{spec[:2]} partition {p}")
+            if not torch.equal(scan.visible_indices(mask, size),
+                               j1[p].to(torch.int64)):
+                raise AssertionError(f"(n) visible_indices differs from J1 "
+                                     f"on {spec[:2]} partition {p}")
+    ns_args, pods_args = block_args((*NS, top)), block_args((*PODS, top))
+    pods_mask = scan.visible_mask(*pods_args)
+    pods_size = fanout.pow2_at_least(max(1, int(pods_mask.sum())))
+    out["count_visible"] = time_ms(lambda: scan.count_visible(*ns_args), 20)
+    out["visible_mask"] = time_ms(lambda: scan.visible_mask(*pods_args), 20)
+    out["visible_indices"] = time_ms(
+        lambda: scan.visible_indices(pods_mask, pods_size), 20)
+    shape = f"C={c}, N={n}, {int(mirror.n_valid[0])} valid"
+    program_line("count_visible", f"{shape}, one namespace",
+                 out["count_visible"], smi)
+    program_line("visible_mask", f"{shape}, all pods", out["visible_mask"],
+                 smi)
+    program_line("visible_indices", f"N={n}, {int(pods_mask.sum())} set, size "
+                 f"{pods_size}", out["visible_indices"], smi)
+    log(f"(n) count_visible, visible_mask: equal to K1 on {len(queries)} "
+        f"queries x {p_n} partitions; visible_indices equal to J1")
+
+    # point_lookup: drawn keys and absent ones against the host store
+    inner = store.untracked()
+    rng = random.Random(seed)
+    present = rng.sample(dataset_keys(n_keys), min(n_lookups, n_keys))
+    absent = [k[:-1] + b"x" for k in present[:PROGRAM_ABSENT]]
+    found_n = tomb_n = 0
+    for i, key in enumerate(present + absent):
+        read_rev = top if i % 2 == 0 else top // 2
+        want = store_answer(inner, key, read_rev)
+        row_key = probe_row(mirror, key, dev)
+        hits = []
+        for p in range(p_n):
+            found, rev, row, tb = scan.point_lookup(
+                keys_t[p], revs[p], tomb[p], nv[p], row_key, read_rev)
+            if bool(found):
+                hits.append((p, int(rev), int(row), bool(tb)))
+            elif (int(row), int(rev), bool(tb)) != (
+                    0, int(mirror.revs_host[p, 0]),
+                    bool(mirror.tomb_host[p, 0])):
+                raise AssertionError(f"(n) point_lookup's not-found answer "
+                                     f"for {key!r} is not row 0's")
+        got = ((False, None, None) if not hits
+               else (True, hits[0][1], hits[0][3]))
+        if len(hits) > 1 or got != want:
+            raise AssertionError(f"(n) point_lookup of {key!r} at {read_rev}: "
+                                 f"{hits} where the host store has {want}")
+        if hits:
+            p, rev, row, _tb = hits[0]
+            if (mirror.user_key(p, row) != key
+                    or int(mirror.revs_host[p, row]) != rev):
+                raise AssertionError(f"(n) point_lookup of {key!r}: row "
+                                     f"{row} holds another version")
+            found_n += 1
+            tomb_n += want[2]
+        elif i < len(present) and read_rev == top:
+            raise AssertionError(f"(n) {key!r} not found at the top")
+    one = probe_row(mirror, present[0], dev)
+    out["point_lookup"] = time_ms(lambda: scan.point_lookup(
+        keys_t[0], revs[0], tomb[0], nv[0], one, top), 20)
+    program_line("point_lookup", f"{shape}, one key", out["point_lookup"], smi)
+    log(f"(n) point_lookup: {len(present)} keys and {len(absent)} absent "
+        f"ones equal to the host store ({found_n} found, {tomb_n} of them "
+        f"tombstones)")
+
+    # compact_block on K3's victim mask at (e)'s compaction revision
+    (k3_args,) = scanner._victim_args(mirror, b"", b"", top, n_keys // 8)
+    k3_mask, k3_counts = compact_kernels.victim_mask_batch(*k3_args)
+    for p in range(p_n):
+        got = compact.compact_block(keys_t[p], revs[p], tomb[p], k3_mask[p])
+        kept = int(got[3])
+        if kept != n - int(k3_counts[p]):
+            raise AssertionError(f"(n) compact_block kept {kept} rows of {n} "
+                                 f"with {int(k3_counts[p])} victims")
+        keep = ~k3_mask[p]
+        last = torch.full((n - kept,), n - 1, dtype=torch.int64, device=dev)
+        for g, col in zip(got[:3], (keys_t[p], revs[p], tomb[p])):
+            if not (torch.equal(g[..., :kept], col[..., keep])
+                    and torch.equal(g[..., kept:],
+                                    col.index_select(-1, last))):
+                raise AssertionError(f"(n) compact_block's rows are not the "
+                                     f"unmasked ones in order, then row N-1, "
+                                     f"partition {p}")
+        want = compact.compact_block(keys_t[p].cpu(), revs[p].cpu(),
+                                     tomb[p].cpu(), k3_mask[p].cpu())
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"(n) compact_block on {dev} differs from "
+                                 f"its CPU run, partition {p}")
+    out["compact_block"] = time_ms(lambda: compact.compact_block(
+        keys_t[0], revs[0], tomb[0], k3_mask[0]), 10)
+    program_line("compact_block", f"{shape}, {int(k3_counts[0])} victims",
+                 out["compact_block"], smi)
+
+    # fanout_mask on (f)'s population as prefixes, against its CPU run and
+    # K5 where a watcher's prefix is its range
+    frng = np.random.RandomState(seed)
+    specs = fanout_population(n_watchers, n_broad, frng)
+    events = fanout_events(n_events, 1, frng)
+    matcher, ev, cols, index, wids = packed_block(specs, events, dev)
+    width = matcher.table.width
+    pc, pm = fanout.prefix_rows(*keyops.chunk_prefix_masks(
+        [s for _w, s, _e, _r in specs], width))
+    min_revs = torch.tensor([r for *_x, r in specs], dtype=torch.int64)
+    prefix = (torch.from_numpy(pc).to(dev), torch.from_numpy(pm).to(dev),
+              min_revs.to(dev))
+    got = fanout.fanout_mask(*ev, *prefix)
+    want = fanout.fanout_mask(ev[0].cpu(), ev[1].cpu(),
+                              *[t.cpu() for t in prefix])
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("(n) fanout_mask on the card differs from its "
+                             "CPU run")
+    k5 = fanout_kernels.fanout_mask_range(*ev, n_events, *cols, index=index)
+    slot_of = {int(w): s for s, w in enumerate(wids) if w >= 0}
+    same = [w for w, s, e, _r in specs if e == coder.prefix_end(s)]
+    w_idx = torch.tensor(same, dtype=torch.int64, device=dev)
+    s_idx = torch.tensor([slot_of[w] for w in same], dtype=torch.int64,
+                         device=dev)
+    if not torch.equal(got[:n_events].index_select(1, w_idx),
+                       k5[:n_events].index_select(1, s_idx)):
+        raise AssertionError("(n) fanout_mask differs from K5 where a prefix "
+                             "is the watcher's range")
+    out["fanout_mask"] = time_ms(lambda: fanout.fanout_mask(*ev, *prefix), 10)
+    program_line("fanout_mask", f"{n_watchers} prefixes x {n_events} events, "
+                 f"C={width // 4}", out["fanout_mask"], smi)
+    log(f"(n) fanout_mask: equal to its CPU run, and to K5 on {len(same)} "
+        f"of {len(specs)} watchers whose prefix is their range "
+        f"({int(got.sum())} deliveries)")
+    return out
 
 
 # ------------------------------------------------------------------ phase l
@@ -5846,6 +6081,9 @@ def main() -> int:
         try:
             launches, main_cases = serve_phase(backend, store, top, dev)
             seconds["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            programs_phase(backend, store, top, args.keys, args.seed, dev, smi)
+            seconds["n"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             meshed = mesh_phase(backend, store, top, args, dev)
             seconds["l"] = time.perf_counter() - t0

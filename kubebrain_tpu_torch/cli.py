@@ -10,10 +10,9 @@ The wiring is split in two. :func:`build_backend` builds everything below
 the front (storage, fault plane, fan-out matcher, Backend, request
 scheduler, peers, leases, metrics sinks) and imports neither ``grpc`` nor
 ``protobuf``, so it runs where they are not installed; :func:`build_endpoint`
-adds the gRPC server and the HTTP listeners on top of it.
-
-Flags of the JAX CLI that need modules not ported yet are kept and refused
-when set (:func:`validate_args`), never served without. ``--role follower``
+adds the gRPC server and the HTTP listeners on top of it, and the asyncio
+(``--aio-port``) and kbfront (``--front-port``) listeners, whose modules it
+imports only when their flag is set. ``--role follower``
 builds the follower role (``replica/``) as the peers surface in
 :func:`build_backend`; its replication stream and forwarding need ``grpc``
 and start with the endpoint.
@@ -178,11 +177,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grpc-workers", type=int, default=256,
                    help="gRPC worker threads; each open watch stream holds one")
     p.add_argument("--aio-port", type=int, default=0,
-                   help="additional asyncio etcd3 listener; refused until "
-                        "endpoint/aio.py is ported (ROADMAP item 9)")
+                   help="additional asyncio etcd3 listener (grpc.aio): watch "
+                        "streams are coroutines, not pool threads")
     p.add_argument("--front-port", type=int, default=0,
-                   help="native C++ gRPC/HTTP frontend (kbfront); refused "
-                        "until endpoint/front.py is ported (ROADMAP item 9)")
+                   help="native C++ gRPC/HTTP frontend (native/front/kbfront, "
+                        "make -C native front/kbfront) on this port, "
+                        "forwarding to the Python terminals over a unix "
+                        "socket")
     p.add_argument("--lease-reap-interval", type=float, default=1.0,
                    help="lease subsystem: leader-only reaper cadence; expired "
                         "leases' keys become revision-stamped deletes through "
@@ -262,11 +263,6 @@ def validate_args(args) -> None:
     elif args.leader_address or args.leader_info:
         raise SystemExit("--leader-address/--leader-info require "
                          "--role follower")
-    # flags whose modules are not ported yet: refused, never ignored
-    if args.aio_port or args.front_port:
-        raise SystemExit("--aio-port/--front-port need endpoint/aio.py and "
-                         "endpoint/front.py, which are not ported yet "
-                         "(ROADMAP item 9)")
     if bool(args.cert_file) != bool(args.key_file):
         raise SystemExit("--cert-file and --key-file must be set together")
     if args.secure_only and not args.cert_file:
@@ -588,6 +584,54 @@ def build_endpoint(args):
         grpc_workers=args.grpc_workers,
         extra_http=extra_http,
     ))
+    # the asyncio and kbfront listeners import grpc at the top: imported
+    # here only, so that build_backend loads without grpc
+    if args.aio_port:
+        from .endpoint.aio import AioEndpoint
+
+        creds = None
+        if args.cert_file and args.key_file:
+            creds = endpoint._grpc_creds()
+        aio = AioEndpoint(
+            backend, peers, args.host, args.aio_port, identity,
+            credentials=creds, insecure=not args.secure_only,
+        )
+        _orig_run, _orig_close = endpoint.run, endpoint.close
+
+        def run_both():
+            _orig_run()
+            aio.run()
+
+        def close_both(grace: float = 1.0):
+            aio.close(grace)
+            _orig_close(grace)
+
+        endpoint.run = run_both
+        endpoint.close = close_both
+    if args.front_port:
+        from .endpoint.front import FrontServer
+
+        # over a network engine (remote, or cuda over remote) every write
+        # is a TCP round trip: the unary terminals run in the executor
+        engine = args.inner_storage if args.storage == "cuda" else args.storage
+        front = FrontServer(
+            backend, peers, server, identity, metrics=metrics,
+            brain=server.brain, inline_unary=engine != "remote",
+        )
+        _frun, _fclose = endpoint.run, endpoint.close
+
+        def run_with_front():
+            _frun()
+            front.run(args.front_port, args.host,
+                      cert_file=args.cert_file, key_file=args.key_file,
+                      ca_file=args.ca_file, secure_only=args.secure_only)
+
+        def close_with_front(grace: float = 1.0):
+            front.close()
+            _fclose(grace)
+
+        endpoint.run = run_with_front
+        endpoint.close = close_with_front
     if replica_role is not None:
         # start the replication stream once the listeners are up; stop it
         # (and the forwarding channel) before the backend goes away

@@ -213,3 +213,21 @@ def victim_mask_tiled(keys_t: torch.Tensor, revs: torch.Tensor,
                             & valid[:, 1:] & le[:, 1:])
     return in_range & ((le & (newer_le | (tomb != 0)))
                        | ((ttl != 0) & (row_v == EXPIRED)))
+
+
+def compact_block(keys_t: torch.Tensor, revs: torch.Tensor,
+                  tomb: torch.Tensor, mask: torch.Tensor) -> tuple:
+    """One block (keys_t int32[C, N], revs int64[N], tomb int8[N]) with its
+    ``mask`` rows dropped, order kept (so it stays sorted): (keys_t, revs,
+    tomb, new_count int32). The rows past ``new_count`` repeat row N-1, as
+    ``jnp.nonzero(~mask, size=N, fill_value=N-1)`` gathers them in the JAX
+    program (``kubebrain_tpu/ops/compact.py::compact_block``), which no
+    serving path calls: the engine compacts through K3's mask and the
+    stored-domain merge."""
+    keep = ~mask
+    n = keep.shape[0]
+    kept = torch.nonzero(keep).flatten()
+    idx = torch.full((n,), n - 1, dtype=torch.int64, device=mask.device)
+    idx[: kept.numel()] = kept
+    return (keys_t[:, idx], revs[idx], tomb[idx],
+            keep.sum(dtype=torch.int32))

@@ -1,7 +1,7 @@
-"""Watch fan-out in plain PyTorch: the range-match masks, the block
+"""Watch fan-out in plain PyTorch: the prefix and range-match masks, the block
 dispatch's compaction, and the legacy per-batch matcher.
 
-Counterpart of ``kubebrain_tpu/ops/fanout.py:46-218`` and of the jnp
+Counterpart of ``kubebrain_tpu/ops/fanout.py:29-218`` and of the jnp
 program of ``kubebrain_tpu/fanout/dispatch.py:68-125``. These are the CPU
 path and the oracle the CUDA kernels of ``csrc/fanout_match.cu`` (K4, K5;
 wrappers in ``ops/fanout_kernels.py``) are held to.
@@ -92,6 +92,37 @@ def fanout_mask_range(ev_keys, ev_revs, w_start, w_end, w_unbounded,
     ``fanout_mask_range`` of the JAX package)."""
     return fanout_mask_range_wmajor(ev_keys, ev_revs, w_start, w_end,
                                     w_unbounded, w_min_rev).t().contiguous()
+
+
+def prefix_rows(chunks: np.ndarray, masks: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """``keys.chunk_prefix_masks``' (chunks, masks), uint32[W, C], in the
+    compare domain of sign-flipped event keys → (chunks int32[W, C], masks
+    int32[W, C]): with ``e' = e ^ 0x80000000``, ``e' & m == (p ^
+    0x80000000) & m`` exactly when ``e & m == p``, whatever bits ``m``
+    holds."""
+    m = np.asarray(masks, dtype=np.uint32)
+    c = (np.asarray(chunks, dtype=np.uint32) ^ np.uint32(0x80000000)) & m
+    return c.view(np.int32), m.view(np.int32)
+
+
+def fanout_mask(ev_keys: torch.Tensor, ev_revs: torch.Tensor,
+                prefix_chunks: torch.Tensor, prefix_masks: torch.Tensor,
+                min_revs: torch.Tensor) -> torch.Tensor:
+    """bool[E, W]: the prefix-watcher delivery mask of
+    ``kubebrain_tpu/ops/fanout.py::fanout_mask``, which no serving path
+    calls (the hub's watchers are ranges: K4, K5): event e reaches watcher
+    w when its key, masked by the watcher's chunk masks, equals the
+    watcher's prefix chunks, and ``rev[e] >= min_rev[w]``. Event keys are
+    flipped int32[E, C] rows, revisions int64; the watchers' rows come from
+    :func:`prefix_rows`. The compare folds over the chunks, so memory stays
+    O(E·W)."""
+    e, c = ev_keys.shape
+    ok = min_revs.view(1, -1) <= ev_revs.view(-1, 1)               # [E, W]
+    for ci in range(c):
+        ok &= ((ev_keys[:, ci].view(-1, 1) & prefix_masks[:, ci].view(1, -1))
+               == prefix_chunks[:, ci].view(1, -1))
+    return ok
 
 
 class RankIndex(NamedTuple):

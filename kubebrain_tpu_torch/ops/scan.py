@@ -170,3 +170,68 @@ def visibility_mask_blocked(keys_t: torch.Tensor, revs: torch.Tensor,
         cand_next[..., :-1] = cand(rows[1:], owner[:-1])
         same_next[:, :-1] = (keys_t[:, :, :-1] == keys_t[:, :, 1:]).all(dim=1)
     return own & ~(same_next.unsqueeze(0) & cand_next) & (tomb == 0).unsqueeze(0)
+
+
+# --------------------------------------------- one-block device programs
+# Counterparts of the jitted one-block programs of
+# ``kubebrain_tpu/ops/scan.py:100-136`` (``count_visible``,
+# ``visible_mask_jit``, ``visible_indices``, ``make_point_lookup``), which
+# no serving path calls: the engine scans every partition at once through
+# K1/K2. One block is one partition in this module's layout: keys_t
+# int32[C, N] (chunk-major, sign-flipped), revs int64[N], tomb int8[N],
+# n_valid rows at the front; bounds and keys are flipped int32[C] rows.
+# Each runs on the device of its tensors, with no transfer of its own.
+
+def visible_mask(keys_t: torch.Tensor, revs: torch.Tensor, tomb: torch.Tensor,
+                 n_valid, start: torch.Tensor, end: torch.Tensor, unbounded,
+                 read_rev) -> torch.Tensor:
+    """bool[N]: the rows of one block visible at ``read_rev`` within
+    [start, end) (``visible_mask_jit``); rows at or past ``n_valid`` never
+    are. :func:`visibility_mask` with one partition and one query."""
+    dev = keys_t.device
+    one = lambda x, dtype: torch.as_tensor(x, dtype=dtype, device=dev).view(1)
+    return visibility_mask(
+        keys_t.unsqueeze(0), revs.unsqueeze(0), tomb.unsqueeze(0),
+        one(n_valid, torch.int64), start.view(1, -1), end.view(1, -1),
+        one(unbounded, torch.bool), one(read_rev, torch.int64))[0, 0]
+
+
+def count_visible(keys_t: torch.Tensor, revs: torch.Tensor,
+                  tomb: torch.Tensor, n_valid, start: torch.Tensor,
+                  end: torch.Tensor, unbounded, read_rev) -> torch.Tensor:
+    """int32 scalar: the number of rows :func:`visible_mask` sets."""
+    return visible_mask(keys_t, revs, tomb, n_valid, start, end, unbounded,
+                        read_rev).sum(dtype=torch.int32)
+
+
+def visible_indices(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """int64[size]: the first ``size`` set positions of ``mask``, in order,
+    padded with ``len(mask)`` (``jnp.nonzero(mask, size=size,
+    fill_value=len(mask))``)."""
+    n = mask.shape[0]
+    idx = torch.nonzero(mask).flatten()[:size]
+    out = torch.full((size,), n, dtype=torch.int64, device=mask.device)
+    out[: idx.numel()] = idx
+    return out
+
+
+def point_lookup(keys_t: torch.Tensor, revs: torch.Tensor, tomb: torch.Tensor,
+                 n_valid, key: torch.Tensor, read_rev) -> tuple:
+    """The latest version of one key at ``read_rev`` in one block
+    (``make_point_lookup``): (found, revision, row, tombstone), 0-d tensors
+    (bool, int64, int64, bool). The row is the last valid one holding
+    ``key`` (flipped int32[C]) at a revision <= ``read_rev``; when there is
+    none, found is False and the row is 0, with row 0's revision and
+    tombstone, as the JAX program answers."""
+    n = keys_t.shape[1]
+    dev = keys_t.device
+    valid = torch.arange(n, device=dev) < torch.as_tensor(
+        n_valid, dtype=torch.int64, device=dev)
+    match = (valid & (keys_t == key.view(-1, 1)).all(dim=0)
+             & (revs <= torch.as_tensor(read_rev, dtype=torch.int64,
+                                        device=dev)))
+    found = match.any()
+    # the last matching row: the first of the reversed mask
+    last = n - 1 - torch.argmax(match.flip(0).to(torch.uint8))
+    row = torch.where(found, last, torch.zeros_like(last))
+    return found, revs[row], row, tomb[row] != 0

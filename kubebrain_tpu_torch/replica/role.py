@@ -28,10 +28,15 @@ instant bounds every revision committed before it, so once the watermark
 covers that head, the follower is at most as stale as the instant is old.
 Every fetch counts (the fence's, and one a progress tick,
 :meth:`FollowerRole.sample_leader_head`), and the clock runs from the
-newest covered one. The JAX role runs it only from the last instant the
-watermark covered the highest head it had heard of, which under steady
-writes and fences refuses reads while the follower is well inside the
-bound.
+newest covered one. A read the clock would refuse first takes one fresh
+head fetch (shared by the reads that would refuse beside it) and is
+refused only if the clock, read again, is still past the bound: a
+follower that has caught up serves at once, and under steady writes the
+refusals' own fetches keep the samples as dense as the refusals.
+The JAX role runs the clock only from the last instant the watermark
+covered the highest head it had heard of and fetches nothing before a
+refusal, which under steady writes and fences refuses reads while the
+follower is well inside the bound.
 
 Counterpart of ``kubebrain_tpu/replica/role.py``. ``grpc`` and the
 generated protos are imported inside the forwarding paths only
@@ -149,6 +154,12 @@ class FollowerRole:
         self._fl_done = 0        # completed fetch generations
         self._fl_inflight = False
         self._fl_result: tuple[int | None, str | None] = (None, None)
+        # the head fetch of reads the staleness clock would refuse: one in
+        # flight at a time, its outcome shared by the reads waiting on it
+        self._sr_cv = threading.Condition()
+        self._sr_inflight = False
+        self._sr_done = 0        # completed fetches
+        self._sr_ok = False      # the last one's outcome
         self._channel = None  # grpc.Channel to the leader, on first forward
         self._stubs: dict[str, object] = {}
         self._stream = None  # ReplicationStream, attached by start()
@@ -200,23 +211,53 @@ class FollowerRole:
             if fetched_at is not None:
                 self._heads.append((fetched_at, revision))
 
-    def sample_leader_head(self) -> None:
+    def sample_leader_head(self) -> bool:
         """One leader-head fetch for the staleness clock, best effort:
         the replication stream takes one each progress tick. A failed
         fetch pauses the samples for ``compact_sync_interval_s``, so that
         an unreachable leader does not stretch every tick to the fetch's
-        timeout."""
+        timeout. True when a head was fetched and noted."""
         t0 = time.monotonic()
         if t0 < self._sample_after or (
                 self._plane is not None and self._plane.leader_unreachable()):
-            return
+            return False
         try:
             rev = self._syncer._fetch()
         except Exception:
             self._sample_after = (time.monotonic()
                                   + self.config.compact_sync_interval_s)
-            return
+            return False
         self._note_leader_rev(int(rev or 0), t0)
+        return True
+
+    def _resample_before_refusal(self) -> bool:
+        """A fresh leader-head sample for a read the staleness clock would
+        refuse. Reads that would refuse together share one fetch: a read
+        that finds one in flight waits for its outcome, at most the
+        fetch's own timeout. Sharing is sound here, unlike in the fence:
+        whenever the shared fetch started, the clock runs from that start
+        only once the watermark covers the head it returned. False when
+        the fetch failed, was paused (:meth:`sample_leader_head`) or the
+        wait timed out: the read is then refused."""
+        with self._sr_cv:
+            if self._sr_inflight:
+                target = self._sr_done + 1
+                if not self._sr_cv.wait_for(
+                        lambda: self._sr_done >= target,
+                        timeout=self._syncer._timeout):
+                    return False
+                return self._sr_ok
+            self._sr_inflight = True
+        ok = False
+        try:
+            ok = self.sample_leader_head()
+        finally:
+            with self._sr_cv:
+                self._sr_inflight = False
+                self._sr_done += 1
+                self._sr_ok = ok
+                self._sr_cv.notify_all()
+        return ok
 
     def note_applied(self, watermark: int, leader_head: int) -> None:
         """Applier callback after a replicated block (or progress mark) is
@@ -344,10 +385,15 @@ class FollowerRole:
     def check_staleness(self) -> None:
         """The bounded-staleness gate for serializable reads: lag past
         either bound is a REFUSAL (clients fail over), never a stale
-        answer."""
+        answer. Past the time bound the clock is read again after one
+        fresh leader-head sample (:meth:`_resample_before_refusal`); a
+        read is served only while a head the watermark covers was fetched
+        inside the bound."""
         cfg = self.config
         if cfg.max_staleness_ms:
             lag_ms = self.lag_seconds() * 1000.0
+            if lag_ms > cfg.max_staleness_ms and self._resample_before_refusal():
+                lag_ms = self.lag_seconds() * 1000.0
             if lag_ms > cfg.max_staleness_ms:
                 self._refuse(StaleReplicaError(
                     f"replica lag {lag_ms:.0f}ms > max-staleness-ms "

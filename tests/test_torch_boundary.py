@@ -379,3 +379,46 @@ print("ok")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+
+
+def test_listener_flags_leave_build_backend_free_of_the_front_dependencies():
+    """The asyncio and kbfront listeners (``endpoint/aio.py``,
+    ``endpoint/front.py``) are front files, checked with the others by
+    ``test_port_imports_no_jax_and_no_jax_package``; ``cli.build_endpoint``
+    imports them only for their flags. With ``grpc``, ``google.protobuf``,
+    ``prometheus_client`` and ``cryptography`` unimportable,
+    ``cli.build_backend`` given ``--aio-port`` and ``--front-port`` still
+    wires and serves, and loads neither listener; the device programs of
+    ``ops/`` (``count_visible``, ``visible_mask``, ``visible_indices``,
+    ``point_lookup``, ``compact_block``, ``fanout_mask``) load too."""
+    listeners = {"kubebrain_tpu_torch/endpoint/aio.py",
+                 "kubebrain_tpu_torch/endpoint/front.py"}
+    assert listeners <= {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    code = BLOCKER + """
+from kubebrain_tpu_torch import cli
+from kubebrain_tpu_torch.metrics import NoopMetrics
+from kubebrain_tpu_torch.ops.compact import compact_block  # noqa: F401
+from kubebrain_tpu_torch.ops.fanout import fanout_mask  # noqa: F401
+from kubebrain_tpu_torch.ops.scan import (  # noqa: F401
+    count_visible, point_lookup, visible_indices, visible_mask)
+
+backend, store, peers = cli.build_backend(
+    ["--storage", "cuda", "--inner-storage", "memkv", "--device", "cpu",
+     "--single-node", "--identity", "127.0.0.1:2380",
+     "--aio-port", "23790", "--front-port", "23791"], metrics=NoopMetrics())
+try:
+    rev = backend._kb_scheduler.create(b"/registry/pods/a/p", b"v")
+    assert [kv.revision for kv in backend._kb_scheduler.list_(
+        b"/registry/pods/", b"/registry/pods0").kvs] == [rev]
+finally:
+    backend.close()
+    store.close()
+assert not any(m.startswith(("grpc", "google.protobuf", "prometheus_client",
+                             "cryptography")) for m in sys.modules)
+assert "kubebrain_tpu_torch.endpoint.aio" not in sys.modules
+assert "kubebrain_tpu_torch.endpoint.front" not in sys.modules
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]

@@ -174,6 +174,75 @@ def test_main_path_and_compaction(shims, seed):
     assert all(m["max_abs_err"] == 0 for m in cases.values())
 
 
+PROGRAM_SIZES = {"n_lookups": 200, "n_watchers": 300, "n_broad": 3,
+                 "n_events": 64}
+
+
+@pytest.fixture
+def served_store(shims):
+    """(c) at a small size: (store, top, backend) after ``serve_phase``."""
+    store, top = chip_smoke.load_store(2000, 0, CPU)
+    backend = chip_smoke.Backend(store, chip_smoke.BackendConfig())
+    try:
+        chip_smoke.serve_phase(backend, store, top, CPU)
+        yield store, top, backend
+    finally:
+        backend.close()
+        store.close()
+
+
+def test_programs_phase(served_store):
+    """Phase (n) after (c) on its store: the six programs agree with K1
+    and J1 on (c)'s queries, with the host store on drawn and absent keys,
+    with their CPU runs, and with K5 where a prefix is a range; each is
+    timed. (c)'s Backend still serves after it."""
+    store, top, backend = served_store
+    scan_kernels.reset_launch_counts()
+    compact_kernels.reset_launch_counts()
+    fanout_kernels.reset_launch_counts()
+    out = chip_smoke.programs_phase(backend, store, top, 2000, 0, CPU,
+                                    "cpu (rehearsal)", **PROGRAM_SIZES)
+    assert set(out) == {"count_visible", "visible_mask", "visible_indices",
+                        "point_lookup", "compact_block", "fanout_mask"}
+    assert all(ms > 0 for ms in out.values())
+    # the yardsticks ran: K1 once per query of (c)'s batch, K3 and K5 once
+    assert scan_kernels.visibility_mask_batch.launches == 8
+    assert compact_kernels.victim_mask_batch.launches == 1
+    assert fanout_kernels.fanout_mask_range.launches == 1
+    assert backend.count(*chip_smoke.PODS)[0] > 0
+
+
+def _break_first(fn):
+    """``fn`` whose first tensor result has its first element flipped."""
+    def broken(*args, **kw):
+        res = fn(*args, **kw)
+        first = res[0] if isinstance(res, tuple) else res
+        first = first.clone()
+        flat = first.view(-1)
+        flat[0] = ~flat[0] if flat.dtype == torch.bool else flat[0] + 1
+        return (first, *res[1:]) if isinstance(res, tuple) else first
+    return broken
+
+
+@pytest.mark.parametrize("module,name,message", [
+    ("scan", "visible_mask", "visible_mask differs from K1"),
+    ("scan", "visible_indices", "visible_indices differs from J1"),
+    ("scan", "point_lookup", "point_lookup"),
+    ("compact", "compact_block", "compact_block"),
+    ("fanout", "fanout_mask", "fanout_mask"),
+])
+def test_programs_phase_stops_at_a_mismatch(served_store, monkeypatch,
+                                            module, name, message):
+    """A program that answers wrong stops (n) with an AssertionError that
+    names it: no mismatch is caught and passed over."""
+    store, top, backend = served_store
+    mod = {"scan": tscan, "compact": tcompact, "fanout": tfanout}[module]
+    monkeypatch.setattr(mod, name, _break_first(getattr(mod, name)))
+    with pytest.raises(AssertionError, match=message):
+        chip_smoke.programs_phase(backend, store, top, 2000, 0, CPU,
+                                  "cpu (rehearsal)", **PROGRAM_SIZES)
+
+
 def mesh_args(**kw):
     return types.SimpleNamespace(**{"seed": 0, "watchers": 300,
                                     "block_events": 64, **kw})
@@ -1074,6 +1143,9 @@ def main() -> int:
     try:
         chip_smoke.serve_phase(backend, store, top, CPU)
         t2 = time.perf_counter()
+        chip_smoke.programs_phase(backend, store, top, args.keys, args.seed,
+                                  CPU, "cpu (rehearsal)")
+        t2n = time.perf_counter()
         chip_smoke.compact_phase(backend, store, top, args.keys, CPU)
         t3 = time.perf_counter()
     finally:
@@ -1099,7 +1171,8 @@ def main() -> int:
     chip_smoke.chaos_phase(small, CPU)
     t6 = time.perf_counter()
     print(f"host seconds on the CPU: kernel phases {t1 - t0}, load and serve "
-          f"{t2 - t1}, compaction phase {t3 - t2}, fan-out phase {t4 - t3}, "
+          f"{t2 - t1}, programs {t2n - t2}, compaction phase {t3 - t2n}, "
+          f"fan-out phase {t4 - t3}, "
           f"deployed engines {t5 - t4}, chaos {t6 - t5}")
     return 0
 

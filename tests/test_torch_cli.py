@@ -1,12 +1,13 @@
 """The port's CLI (``kubebrain_tpu_torch/cli.py``): its wiring of the
 ``cuda`` engine, the engine hooks and the fan-out matchers, the mesh flags,
-the flags it refuses until their modules are ported, the follower role and
-its flags, the device default, and a kept divergence from the JAX CLI,
-which cannot start ``tpu`` over native."""
+the asyncio and kbfront listeners, the follower role and its flags, the
+device default, and a kept divergence from the JAX CLI, which cannot start
+``tpu`` over native."""
 
 import subprocess
 import sys
 
+import grpc
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ from kubebrain_tpu_torch.server.service import PeerService, SingleNodePeerServic
 from kubebrain_tpu_torch.storage.cuda.engine import CudaKvStorage, TorchScanner
 from kubebrain_tpu_torch.storage.native import NativeKv
 
+from kbstored_build import kbfront  # noqa: F401
 from test_etcd_server import EtcdClient, free_port
 from test_torch_etcd_server import ROOT, port_flags
 
@@ -140,13 +142,63 @@ def test_peers_follow_single_node():
         assert type(b.peers) is PeerService
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--aio-port", "23790"), "ROADMAP item 9"),
-    (("--front-port", "23791"), "ROADMAP item 9"),
-])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.build_backend([*CUDA_ON_CPU, *flags], metrics=NoopMetrics())
+@pytest.mark.parametrize("listener", ["aio_port", "front_port"])
+@pytest.mark.parametrize("secure", [False, True], ids=["plaintext", "tls"])
+def test_listener_flags_boot_and_serve_a_range(listener, secure, kbfront,
+                                               tmp_path):
+    """``--aio-port`` and ``--front-port`` boot with the CLI's wiring and
+    serve a Range written through the sync front, beside it; with
+    ``--cert-file``/``--key-file`` both serve it over TLS. The kbfront
+    binary is built on first use (``kbfront`` fixture)."""
+    from kubebrain_tpu_torch.util.selfsigned import gen_self_signed
+
+    port, extra = free_port(), free_port()
+    flags = port_flags(port, "--" + listener.replace("_", "-"), str(extra))
+    if secure:
+        cert, key = gen_self_signed(str(tmp_path), "cli-listener")
+        flags += ["--cert-file", cert, "--key-file", key]
+    endpoint, backend, store = cli.build_endpoint(flags)
+    endpoint.run()
+    key_ = b"/registry/pods/default/p0"
+    channels = []
+    try:
+        if secure:
+            with open(cert, "rb") as fh:
+                creds = grpc.ssl_channel_credentials(root_certificates=fh.read())
+            channels = [grpc.secure_channel(f"localhost:{p}", creds)
+                        for p in (port, extra)]
+        else:
+            channels = [grpc.insecure_channel(f"127.0.0.1:{p}")
+                        for p in (port, extra)]
+        for ch in channels:
+            grpc.channel_ready_future(ch).result(timeout=30)
+        txn = channels[0].unary_unary(
+            "/etcdserverpb.KV/Txn",
+            request_serializer=rpc_pb2.TxnRequest.SerializeToString,
+            response_deserializer=rpc_pb2.TxnResponse.FromString)
+        put = rpc_pb2.TxnRequest(  # a create: MOD == 0, else a Range
+            compare=[rpc_pb2.Compare(target=rpc_pb2.Compare.MOD, key=key_,
+                                     mod_revision=0)],
+            success=[rpc_pb2.RequestOp(request_put=rpc_pb2.PutRequest(
+                key=key_, value=b"v"))],
+            failure=[rpc_pb2.RequestOp(request_range=rpc_pb2.RangeRequest(
+                key=key_))])
+        rev = txn(put, timeout=10).header.revision
+        rng = channels[1].unary_unary(
+            "/etcdserverpb.KV/Range",
+            request_serializer=rpc_pb2.RangeRequest.SerializeToString,
+            response_deserializer=rpc_pb2.RangeResponse.FromString)
+        r = rng(rpc_pb2.RangeRequest(key=b"/registry/pods/",
+                                     range_end=b"/registry/pods0"), timeout=10)
+        assert [(kv.key, kv.value, kv.mod_revision) for kv in r.kvs] == [
+            (key_, b"v", rev)]
+        assert isinstance(store, CudaKvStorage)
+    finally:
+        for ch in channels:
+            ch.close()
+        endpoint.close()
+        backend.close()
+        store.close()
 
 
 @pytest.mark.parametrize("flags", [

@@ -245,7 +245,10 @@ def test_port_client_lease_lifecycle_and_traceparent():
 
     from test_torch_etcd_server import port_flags
 
+    from kubebrain_tpu_torch.trace import TRACER
+
     port, info_port = free_port(), free_port()
+    TRACER.reset()  # no span of an earlier test may stand in for this one
     endpoint, backend, store = build_endpoint(port_flags(
         port, "--lease-reap-interval", "0.1", "--info-port", str(info_port)))
     endpoint.run()

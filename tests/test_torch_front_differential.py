@@ -11,7 +11,10 @@ differs by construction is named: ``MemberListResponse.members[].
 clientURLs`` carries each server's own client port. Lease IDs are chosen
 by the client, since a server picks a random one. A Watch opened on each
 server before the script must deliver the same events (key, value,
-mod_revision, type) in the same order.
+mod_revision, type) in the same order. ``run_differential`` and
+``Front(..., listener=...)`` drive the same script through the asyncio
+and kbfront listeners (``tests/test_torch_aio_endpoint.py``,
+``tests/test_torch_front.py``).
 
 With ``device_path`` the port's mirror serves every Range from the device
 path (``scanner._host_limit_threshold = 0``) and the kernel wrappers
@@ -47,13 +50,23 @@ def _flags(*storage: str) -> list[str]:
 
 
 class Front:
-    """One running server, its raw client and a Watch on ``/registry/``."""
+    """One running server, its raw client and a Watch on ``/registry/``.
+    ``listener`` names the flag of the port the client speaks to:
+    ``client_port`` (the sync gRPC front), ``aio_port`` or ``front_port``
+    (kbfront), each given a free port here."""
 
-    def __init__(self, cli, flags):
+    def __init__(self, cli, flags, listener: str = "client_port"):
+        if listener != "client_port":
+            flags = [*flags, "--" + listener.replace("_", "-"),
+                     str(free_port())]
         args = cli.build_parser().parse_args(flags)
         self.endpoint, self.backend, self.store = cli.build_endpoint(args)
         self.endpoint.run()
-        self.client = EtcdClient(f"127.0.0.1:{args.client_port}")
+        target = f"127.0.0.1:{getattr(args, listener)}"
+        if listener == "front_port":
+            # kbfront is a second process: wait until it answers
+            wait_ready(target)
+        self.client = EtcdClient(target)
         self._requests: queue.Queue = queue.Queue()
         self._responses = self.client.watch(iter(self._requests.get, None))
         req = rpc_pb2.WatchRequest()
@@ -92,6 +105,14 @@ class Front:
         self.endpoint.close()
         self.backend.close()
         self.store.close()
+
+
+def wait_ready(target: str, timeout: float = 30.0) -> None:
+    ch = grpc.insecure_channel(target)
+    try:
+        grpc.channel_ready_future(ch).result(timeout=timeout)
+    finally:
+        ch.close()
 
 
 def txn(key, mod_rev, put=None, delete=False, lease=0):
@@ -167,15 +188,19 @@ def script(run) -> None:
 
 @pytest.fixture
 def fronts(request, monkeypatch):
-    device_path = request.param
+    """(JAX front, port front, device_path); the parameter is
+    ``device_path`` or ``(device_path, listener)`` (see :class:`Front`)."""
+    device_path, listener = (request.param if isinstance(request.param, tuple)
+                             else (request.param, "client_port"))
     if device_path:
         cpu_shims(monkeypatch.setattr)
     for mod in (scan_kernels, compact_kernels, fanout_kernels):
         mod.reset_launch_counts()
-    jax_front = Front(jax_cli, _flags("--storage", "memkv"))
+    jax_front = Front(jax_cli, _flags("--storage", "memkv"), listener)
     try:
         port_front = Front(port_cli, _flags(
-            "--storage", "cuda", "--inner-storage", "memkv", "--device", "cpu"))
+            "--storage", "cuda", "--inner-storage", "memkv", "--device",
+            "cpu"), listener)
     except BaseException:
         jax_front.close()
         raise
@@ -205,10 +230,9 @@ def _stubs(front: Front) -> None:
             response_deserializer=resp.FromString))
 
 
-@pytest.mark.parametrize("fronts", [False, True], indirect=True,
-                         ids=["host_path", "device_path"])
-def test_port_front_answers_as_the_jax_front(fronts):
-    jax_front, port_front, device_path = fronts
+def run_differential(jax_front: Front, port_front: Front) -> None:
+    """The script through both fronts, every answer equal, then their
+    watches' events equal and in the same order."""
     n = [0]
 
     def run(item):
@@ -232,6 +256,13 @@ def test_port_front_answers_as_the_jax_front(fronts):
     # 12 creates, an update, a delete, the leased key's create and the
     # revoke's delete of it
     assert len(port_front.events) == 16
+
+
+@pytest.mark.parametrize("fronts", [False, True], indirect=True,
+                         ids=["host_path", "device_path"])
+def test_port_front_answers_as_the_jax_front(fronts):
+    jax_front, port_front, device_path = fronts
+    run_differential(jax_front, port_front)
     if device_path:
         assert scan_kernels.visibility_mask_batch.launches > 0
         assert compact_kernels.victim_mask_batch.launches > 0

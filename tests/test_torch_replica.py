@@ -24,6 +24,7 @@ Range and Count answers at the same pinned revisions must be equal.
 import random
 import threading
 import time
+import types
 
 import grpc
 import pytest
@@ -373,10 +374,14 @@ def test_bounded_staleness_refusal_and_degradation_ladder():
                 assert time.monotonic() < deadline, "never un-stale"
                 time.sleep(0.1)
         assert len(kvs) == 1 and srev >= rev
-        # stall replication: the stream stops advancing the watermark,
-        # so within the deadline every serializable read must REFUSE
+        # stall replication: the stream stops advancing the watermark and
+        # the leader writes on, so within the deadline every serializable
+        # read must REFUSE (the head fetch a would-be refusal takes shows
+        # the watermark behind)
         follower.role._stream.close()
         wm = follower.role.applied_revision()
+        ok, _ = lcli.create(b"/registry/pods/ns0/k2", b"v2")
+        assert ok
         time.sleep(0.5)  # past the 300ms bound
         with pytest.raises(grpc.RpcError) as ei:
             deadline = time.monotonic() + 10
@@ -393,8 +398,6 @@ def test_bounded_staleness_refusal_and_degradation_ladder():
         assert rows(kvs_f) == rows(kvs_l)
         # a linearizable read with the watermark stalled BELOW the leader
         # head must refuse (fence timeout), never answer stale
-        ok, _ = lcli.create(b"/registry/pods/ns0/k2", b"v2")
-        assert ok
         with pytest.raises(grpc.RpcError) as ei:
             fcli.list(PODS, PODS_END)
         assert ei.value.code() == grpc.StatusCode.UNAVAILABLE
@@ -695,12 +698,117 @@ def test_staleness_clock_runs_from_the_newest_covered_leader_head(
     if package == "jax":
         return
     assert role.lag_seconds() == 4.5
+    # the leader writes on: each read the clock would refuse fetches the
+    # head first, and a head the watermark has not covered refuses it
+    heads[0] = 450
     at(7.5)
     assert refused() and role.lag_seconds() == 5.5
     at(9.0, watermark=399)  # the head fetched at 4.0 is not covered yet
     assert refused() and role.lag_seconds() == 7.0
     applied[0] = 400        # covered: the clock runs from 4.0
     assert role.lag_seconds() == 5.0
+
+
+def test_a_fresh_head_sample_decides_a_would_be_refusal(monkeypatch):
+    """The head samples of the progress ticks arrive late (the last at 1.0
+    s), so at 6.5 s the clock says 5.5 s although the follower has applied
+    every write: the gate then fetches the head, finds it covered and
+    serves, the clock running from that fetch. It refuses when the fresh
+    head is not covered (the watermark is truly behind) and when the
+    fetch fails, and the samples then pause."""
+    from kubebrain_tpu_torch.replica import role as role_mod
+
+    applied = [100]
+    role, clock, heads = _clocked_role(role_mod, monkeypatch, applied)
+    fetches = []
+    fetch = role._syncer._fetch
+
+    def counted():
+        fetches.append(clock[0])
+        return fetch()
+
+    role._syncer._fetch = counted
+
+    def refused() -> bool:
+        try:
+            role.gate_read(0, True)
+            return False
+        except role_mod.StaleReplicaError:
+            return True
+
+    clock[0], heads[0] = 1.0, 100
+    role.sample_leader_head()                 # a tick's sample, covered
+    clock[0] = 5.5
+    assert not refused() and fetches == [1.0]  # inside the bound: no fetch
+    clock[0] = 6.5
+    assert not refused() and fetches == [1.0, 6.5]
+    assert role.lag_seconds() == 0.0
+    heads[0] = 180                             # the leader writes on
+    clock[0] = 12.0
+    assert refused() and fetches[-1] == 12.0
+    assert role.lag_seconds() == 5.5           # from the fetch at 6.5
+    applied[0] = 180                           # the follower catches up
+    clock[0] = 12.5
+    assert role.lag_seconds() == 0.5 and not refused()
+
+    def unreachable():
+        fetches.append(clock[0])
+        raise OSError("leader /status unreachable")
+
+    role._syncer._fetch = unreachable
+    clock[0] = 17.5
+    n = len(fetches)
+    assert refused() and fetches[n:] == [17.5]
+    clock[0] = 17.75                           # the samples are paused
+    assert refused() and len(fetches) == n + 1
+    assert role.refused["stale"] == 3
+
+
+def test_would_be_refusals_share_one_head_fetch(monkeypatch):
+    """Reads that the staleness clock would refuse together take one head
+    fetch: those that arrive while it is in flight wait for its outcome,
+    and all of them serve once it shows the head covered."""
+    from kubebrain_tpu_torch.replica import role as role_mod
+
+    role = role_mod.FollowerRole(
+        types.SimpleNamespace(tso=types.SimpleNamespace(committed=lambda: 50)),
+        role_mod.FollowerConfig(leader_address="unused:1",
+                                leader_info="unused:2",
+                                max_staleness_ms=5000.0))
+    role._note_leader_rev(50, time.monotonic() - 60.0)  # covered, 60 s old
+    started, release = threading.Event(), threading.Event()
+    fetches = []
+
+    def slow_fetch():
+        fetches.append(1)
+        started.set()
+        release.wait(10)
+        return 50
+
+    role._syncer._fetch = slow_fetch
+    results = []
+
+    def read():
+        try:
+            role.gate_read(0, True)
+            results.append("served")
+        except role_mod.StaleReplicaError:
+            results.append("refused")
+
+    first = threading.Thread(target=read)
+    first.start()
+    assert started.wait(10)
+    rest = [threading.Thread(target=read) for _ in range(7)]
+    for t in rest:
+        t.start()
+    deadline = time.monotonic() + 10
+    while len(role._sr_cv._waiters) < 7:
+        assert time.monotonic() < deadline, "the reads never waited"
+        time.sleep(0.01)
+    release.set()
+    for t in [first, *rest]:
+        t.join(10)
+    assert results == ["served"] * 8 and fetches == [1]
 
 
 def test_a_failed_head_sample_pauses_the_samples(monkeypatch):

@@ -12,7 +12,7 @@ import pytest
 
 from kubebrain_tpu_torch.cli import build_endpoint, build_parser
 from kubebrain_tpu_torch.proto import rpc_pb2
-from kubebrain_tpu_torch.trace import make_traceparent, parse_traceparent
+from kubebrain_tpu_torch.trace import TRACER, make_traceparent, parse_traceparent
 
 from test_etcd_server import EtcdClient, free_port
 from test_torch_etcd_server import port_flags
@@ -27,11 +27,32 @@ def test_cli_accepts_sched_depth_zero():
         validate_args(build_parser().parse_args(["--sched-depth", "-1"]))
 
 
+def test_a_slow_span_left_before_the_server_is_built():
+    """The process tracer is global: a slow span that an earlier test
+    module leaves in its slow log stays there, and ``configure`` keeps the
+    log. The module's server starts from an empty log all the same (its
+    fixture resets the tracer), which ``test_slow_request_log_via_wire``
+    then checks."""
+    import time
+
+    before = TRACER.slow_ms
+    TRACER.configure(slow_ms=1.0)
+    try:
+        with TRACER.span("probe.slow"):
+            time.sleep(0.01)
+    finally:
+        TRACER.configure(slow_ms=before)
+    assert "probe.slow" in [s["name"] for s in TRACER.snapshot()["slow"]]
+
+
 # ------------------------------------------------------- wire end-to-end
 @pytest.fixture(scope="module")
 def server():
     port = free_port()
     info_port = free_port()
+    # spans of earlier tests in this process must not reach this server's
+    # ring or slow log
+    TRACER.reset()
     args = build_parser().parse_args(port_flags(
         port, "--info-port", str(info_port), "--trace-slow-ms", "10000"))
     endpoint, backend, store = build_endpoint(args)
