@@ -1,10 +1,12 @@
 """Host and card lines printed beside each run: a host-speed probe (the
-host's speed has varied between machines by up to 2.8x) and ``nvidia-smi``
+host's speed has varied between machines by up to 2.8x), taken in set-up
+and again once the store is closed after the window, ``nvidia-smi``
 readings of the card's clocks, power and limit, taken as the window opens
-and as it closes."""
+and as it closes, and the collector's passes in the window."""
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import os
 import shutil
@@ -51,3 +53,34 @@ def smi() -> str | None:
     except (subprocess.SubprocessError, OSError):
         return None
     return out.stdout.strip().replace("\n", " | ")
+
+
+class Collections:
+    """The collector's passes while it is open (:meth:`open` to
+    :meth:`close`): how many of each generation, and each full
+    collection's pause in ms."""
+
+    def __init__(self):
+        self.counts = [0, 0, 0]
+        self.full_ms: list[float] = []
+        self._began = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._began = time.perf_counter()
+            return
+        gen = info["generation"]
+        self.counts[gen] += 1
+        if gen == 2:
+            self.full_ms.append((time.perf_counter() - self._began) * 1e3)
+
+    def open(self) -> None:
+        gc.callbacks.append(self)
+
+    def close(self) -> None:
+        if self in gc.callbacks:
+            gc.callbacks.remove(self)
+
+    def line(self) -> str:
+        return (f"collections by generation {self.counts}, full ones "
+                f"pausing {[round(ms, 1) for ms in self.full_ms]} ms")

@@ -116,7 +116,7 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
 
     import torch
 
-    from kbbench import dataset, devtrace, driver, hostinfo, reference
+    from kbbench import dataset, devtrace, driver, hostinfo, reference, spans
     from kbbench.sink import RecordingMetrics
 
     if device is None:
@@ -146,6 +146,7 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
     store_dir = driver.data_dir()
     backend = None
     sink = RecordingMetrics()
+    collections = hostinfo.Collections()
     try:
         if args.control:
             from kbbench.control import ControlBackend
@@ -181,6 +182,7 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
 
         def on_start():
             smi_lines.extend((hostinfo.smi(), hostinfo.pressure()))
+            collections.open()
             for r in readers.values():
                 if hasattr(r, "start"):
                     r.start(w)
@@ -190,6 +192,7 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
             marks["m0"] = sink.mark()
 
         def on_stop():
+            collections.close()
             marks["m1"] = sink.mark()
             if prof is not None:
                 prof.__exit__(None, None, None)
@@ -244,7 +247,8 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
             if summary is not None:
-                result["breakdown"] = devtrace.breakdown(summary)
+                result["breakdown"] = devtrace.breakdown(summary,
+                                                         spans.spans(w))
         else:
             e2e = run.e2e()
             e2e["setup_s"] = setup_s
@@ -264,6 +268,7 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
         gathered_s = time.monotonic() - t
         outputs.unanswered += late
     finally:
+        collections.close()
         # the store is not closed: closing checkpoints the whole store to
         # disk (about a gigabyte here) for a restart that never comes; the
         # directory goes with its write-ahead log
@@ -277,6 +282,9 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
 
+    # the host's speed with the program stopped, as near the window as the
+    # run allows: the set-up probe alone does not follow the window's speed
+    say(f"host probe after the window: {json.dumps(hostinfo.host_probe())}")
     t = time.monotonic()
     checks = reference.judge(ds.records, outputs)
     say(f"check: the program's answers gathered in {gathered_s:.3f} s, "
@@ -298,7 +306,8 @@ def main(argv=None, device: str | None = None, faults=None) -> int:
         say(f"as the window {when}: {line}")
     say(f"window: {attempted} requests sent, {failed} failed; answered "
         f"per 5 s: {slices}; {len(merges)} merges ran in it, of "
-        f"{sorted(round(v, 3) for _t, v in merges)} s")
+        f"{sorted(round(v, 3) for _t, v in merges)} s; "
+        + collections.line())
     for c in checks:
         if c["what"]:
             say(f"check {c['name']}: {c['value']} (limit {c['limit']}): "

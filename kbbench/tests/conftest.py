@@ -62,6 +62,9 @@ KEPT_CELLS = {
                                    "kernel.scan_roofline_pct"],
     "k8s-cl2-5k.churn": SHARED + ["scan.host_copy_ms", "scan.engine_ms",
                                   "compact.seconds"]}
+#: the capacity cell of the published mix, kept for a later cell (PERF.md,
+#: Open questions): it has no per-layer metric yet
+KEPT_PEAK = "kb-upstream-rw.insert-read-peak"
 KEPT_METRICS = {
     "scan.host_copy_ms": ("ms", "lower", "program_span", "read_p95_ms"),
     "scan.engine_ms": ("ms", "lower", "program_span", "read_p95_ms"),
@@ -76,11 +79,15 @@ KEPT_METRICS = {
 @pytest.fixture
 def tiny(tmp_path) -> Path:
     """A tiny copy of the benchmark under ``tmp_path``: ``BENCHMARK.json``
-    with the kept cells added, and ``kbbench/``'s data files and readers."""
+    with the kept cells added (each reporting ``ops_per_s``), and
+    ``kbbench/``'s data files and readers."""
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
     if KEPT_CONFIG["name"] not in {c["name"] for c in manifest["configs"]}:
         manifest["configs"].append(KEPT_CONFIG)
     e2e = {m["name"]: m for m in manifest["end_to_end"]}
+    # the kept cells' rate is the fixed-rate cells' one
+    rate = e2e["ops_per_s"]["workloads"]
+    rate += [c for c in (*KEPT_CELLS, KEPT_PEAK) if c not in rate]
     for name in KEPT_E2E:
         e2e.setdefault(name, {"name": name, "unit": "ms", "better": "lower",
                               "bound": 0.25, "source": "host_clock",
@@ -101,6 +108,11 @@ def tiny(tmp_path) -> Path:
             "why": "kept for a later cell"})
         for name in names:
             metrics[name]["workloads"].append(cell)
+    if KEPT_PEAK not in {w["name"] for w in manifest["workloads"]}:
+        manifest["workloads"].append({
+            "name": KEPT_PEAK, "config": "kb-upstream-rw",
+            "traffic": "insert-read-peak", "chips": 1,
+            "why": "kept for a later cell"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(ROOT / "kbbench" / sub, tmp_path / "kbbench" / sub)

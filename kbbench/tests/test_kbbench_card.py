@@ -14,6 +14,7 @@ from kbbench import run
 
 @pytest.mark.parametrize("cell", ["k8s-cl2-5k.relist",
                                   "kb-upstream-rw.insert-read",
+                                  "kb-upstream-rw.insert-read-peak",
                                   "k8s-cl2-5k.churn"])
 def test_cell_on_the_card(tiny, cell):
     if not torch.cuda.is_available():

@@ -35,6 +35,9 @@ def test_new_config_mix_and_metric_are_found_by_name(tiny):
     manifest["workloads"].append({
         "name": "k8s-small.count-heavy", "config": "k8s-small",
         "traffic": "count-heavy", "chips": 1, "why": "a test"})
+    for m in manifest["end_to_end"]:
+        if m["name"] == "ops_per_s":
+            m["workloads"].append("k8s-small.count-heavy")
     manifest["per_layer"].append({
         "name": "sched.coalesced_share", "unit": "%", "better": "higher",
         "source": "program_counter", "layer": "request scheduler",

@@ -93,3 +93,48 @@ def test_run_seconds_fits_a_full_check_of_24_cells():
     s = MANIFEST["run_seconds"]
     assert isinstance(s, int) and 1 <= s <= 51
     assert (2 + 14 * 24) * (s + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+
+#: the end-to-end metrics meant for the cells named here; the capacity
+#: cell is kept for a later cell and is in the tiny copy only
+MEANT = {"kb-upstream-rw.insert-read": {"ops_per_s", "setup_s"}}
+KEPT_MEANT = {"kb-upstream-rw.insert-read-peak": {"ops_per_s", "setup_s"}}
+
+
+def test_each_cell_reports_the_end_to_end_metrics_meant_for_it(tiny):
+    """The cells named above report just their metrics; any other cell
+    reports ``setup_s``, at least one more, and at most one rate, a metric
+    whose ``workloads`` list names the cell."""
+    from kbbench import run
+
+    for path, meant in ((ROOT / "BENCHMARK.json", MEANT),
+                        (tiny / "BENCHMARK.json", {**MEANT, **KEPT_MEANT})):
+        manifest = json.loads(path.read_text())
+        cells = {w["name"] for w in manifest["workloads"]}
+        for m in manifest["end_to_end"]:
+            assert set(m.get("workloads", cells)) <= cells, m["name"]
+        for cell in cells:
+            got = run.load_cell(str(path), cell)
+            names = {m["name"] for m in got.e2e}
+            assert {m["moves"] for m in got.layer} <= names
+            if cell in meant:
+                assert names == meant[cell], cell
+                continue
+            assert "setup_s" in names and len(names) >= 2, cell
+            rates = [m for m in got.e2e if m["unit"] == "ops/s"]
+            assert len(rates) <= 1, cell
+            assert all(cell in m["workloads"] for m in rates), cell
+
+
+def test_the_capacity_cell_runs_on_the_cpu(tiny):
+    from conftest import KEPT_PEAK, run_cell
+
+    res = run_cell(tiny, KEPT_PEAK, seed=2**33 + 1)
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {"ops_per_s", "setup_s"}
+    assert res["metrics"]["ops_per_s"]["value"] > 0
+    assert res["metrics"]["ops_per_s"]["unit"] == "ops/s"
+    traced = run_cell(tiny, KEPT_PEAK, seed=2**33 + 2, trace=1)
+    assert traced["correct"], traced["checks"]
+    assert traced["metrics"] == {}

@@ -239,3 +239,27 @@ def test_the_manifest_holds_the_new_metric(name):
     assert entry["workloads"] == [CELL]
     assert entry["layer"].startswith(layer)
     assert (METRICS / f"{name}.py").exists()
+
+
+def test_breakdown_names_each_gap_by_the_host_where_spans_are_at_hand():
+    s = devtrace.summarize(FixtureProfile())
+    base = json.loads(FIXTURE.read_text())["baseTimeNanoseconds"]
+    assert len(s["gap_ns"]) == len(OLD_GAPS)
+    for (a, b), (_label, sec) in zip(s["gap_ns"], OLD_GAPS):
+        assert a > base and abs((b - a) / 1e9 - sec) < 1e-8
+    (a1, b1), (a2, b2) = s["gap_ns"][:2]
+    planted = [
+        {"name": "mirror.merge", "start_ns": a1, "end_ns": b1, "tid": 3,
+         "error": None, "stages": [("merge_host", a1, a1 + (b1 - a1) // 2)]},
+        {"name": "backend.get", "start_ns": a2, "end_ns": b2, "tid": 4,
+         "error": None, "stages": [("engine_get", a2, b2)]}]
+    got = devtrace.breakdown(s, planted)["idle_gaps"]
+    assert [sec for _l, sec in got] == [sec for _l, sec in OLD_GAPS]
+    assert got[0][0] == "host merge_host 50%"
+    assert got[1][0] == "host engine_get 100%"
+    assert all(label == "host none" for label, _s in got[2:])
+    # no spans, or a trace with no base: its device neighbours name it
+    assert devtrace.breakdown(s, None)["idle_gaps"] == OLD_GAPS
+    assert devtrace.breakdown(s, [])["idle_gaps"] == OLD_GAPS
+    assert devtrace.breakdown({**s, "gap_ns": None},
+                              planted)["idle_gaps"] == OLD_GAPS
